@@ -1,5 +1,5 @@
-"""rrrmc_tpu: a TPU-native many-chain Monte-Carlo framework for Ising spin
-models, with the capability surface of RRRMC.jl (samplers x models x
+"""rrrmc_tpu: a batched many-chain Monte-Carlo framework for Ising spin
+models, on an accelerator, with the capability surface of RRRMC.jl (samplers x models x
 observables) re-architected for JAX/XLA/Pallas.
 
 Where the reference advances one chain with O(1) incremental bookkeeping on a
@@ -54,13 +54,13 @@ from .models.committee import (
 )
 from .samplers.metropolis import standardMC
 from .samplers.sweep import sweepMC
-from .samplers.dense_sweep import (sweepMC_dense, sweepMC_quant,
-                                   sweepMC_replica)
+from .samplers.dense_sweep import sweepMC_dense
 from .samplers.rrr import rrrMC
 from .samplers.bkl import bklMC
 from .samplers.wtm import wtmMC
 from .samplers.eo import extremal_opt, EOResult
-from .samplers.common import MCState, init_state, rebind, DEFAULT_SEED
+from .samplers.common import (MCState, init_state, rebind, DEFAULT_SEED,
+                              LAST_ROUTE, choose_route)
 from .parallel.tempering import (parallel_tempering, tempered_ensembles,
                                  energies_by_rank, sweep_kernel)
 from . import observables

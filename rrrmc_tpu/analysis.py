@@ -4,8 +4,8 @@ The reference ships these as dev utilities (truep, second_eigenvalue_standard
 / _bkl / _rrr, second_eigenvalue_stats, tm, ravg,
 /root/reference/src/RRRMC.jl:523-731): exact 2^N Boltzmann distributions and
 dense Markov transition matrices of each sampler kernel, used to verify
-stationarity to 1e-13 and compare mixing times. TPU-native, everything
-derives from ONE vmapped energy sweep over all 2^N states (one jit, MXU/VPU
+stationarity to 1e-13 and compare mixing times. Vectorized, everything
+derives from ONE vmapped energy sweep over all 2^N states (one jit,
 batched); the matrix assembly and eigensolves are small-N host work.
 
 State encoding matches observables.pack_config: bit j of the state id is
@@ -123,7 +123,6 @@ def spectral_stats(graph_builder, betas: Sequence[float], n_seeds: int = 10,
             taus[j, l, 0] = second_eigenvalue(Q)
             rrs[j, l, 0] = rejection_rate(Q, p)
             rfQ = transition_matrix_bkl(Q)
-            pr = np.diag(Q)
             taus[j, l, 1] = second_eigenvalue(rfQ)
             Qr = transition_matrix_rrr(X, beta)
             assert stationarity_error(Qr, p) < 1e-12

@@ -1,15 +1,15 @@
 """Dtype policy.
 
-The reference works in Float64/Int throughout (Julia). On TPU, float64 is
-emulated and slow, so the policy is:
+The reference works in Float64/Int throughout (Julia). On an accelerator
+float64 is slow, so the policy is:
 
 * integer-valued models (discrete couplings) keep an exact int32 internal
   energy domain, converted to physical units by a static per-model `scale`
-  (this is the TPU-native version of the DFloat64 fixed-point trick,
+  (this is the accelerator version of the DFloat64 fixed-point trick,
   /root/reference/src/DFloats.jl:11-23: exact arithmetic so that discrete
   delta-E identities never suffer float roundoff);
 * continuous models use the default float dtype: float64 when JAX x64 is
-  enabled (CPU test runs), float32 otherwise (TPU production runs).
+  enabled (CPU test runs), float32 otherwise (GPU production runs).
 """
 
 from __future__ import annotations

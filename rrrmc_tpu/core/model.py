@@ -1,4 +1,4 @@
-"""The model contract (TPU-native analog of /root/reference/src/Interface.jl).
+"""The model contract (batched, functional analog of /root/reference/src/Interface.jl).
 
 A model is an immutable pytree describing one disorder realization of an
 Ising-type energy function over N binary spins. All methods are *pure,
@@ -11,7 +11,7 @@ functionally by `flip`.
 
 Spin convention: sigma is an int8 array of +-1 values (the reference stores
 bits s with sigma = 2s - 1, /root/reference/src/Interface.jl:21-38; we store
-sigma directly since TPU has no scalar bit tricks worth mirroring).
+sigma directly: vectorized code has no use for scalar bit tricks).
 
 Mapping to the reference interface:
 

@@ -3,7 +3,7 @@
 Every model and sampler-state object in rrrmc_tpu is an immutable frozen
 dataclass registered as a JAX pytree: array fields are traced leaves, fields
 marked `static()` are hashable compile-time metadata (sizes, layouts, scales).
-This is the TPU-native replacement for the reference's mutable Julia structs
+This is the functional replacement for the reference's mutable Julia structs
 with type-level parameters (e.g. /root/reference/src/graphs/RE.jl:28 bakes
 M, gamma, beta into the type; here they are static dataclass fields).
 """

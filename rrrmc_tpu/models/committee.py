@@ -3,10 +3,10 @@
 The reference maintains two levels of stabilities with marginal ArraySets per
 hidden unit, plus per-pattern min/max heaps for the quadratic case
 (/root/reference/src/graphs/CommStep.jl:28-48,107-197, CommReLU.jl,
-CommQu.jl:115-260) — all serial-update machinery. TPU-native the whole family
+CommQu.jl:115-260) — all serial-update machinery. Vectorized, the whole family
 reduces to one generic matmul-shaped template:
 
-    Delta1[k, a] = xi[a, block k] . sigma[block k]    (MXU einsum; the aux)
+    Delta1[k, a] = xi[a, block k] . sigma[block k]    (int32 einsum; the aux)
     Delta2[a]    = sum_k c_k g(Delta1[k, a])          (g = unit activation)
     E            = #misclassified = sum_a loss_a(Delta2)
 

@@ -2,10 +2,10 @@
 
 The reference stores SK couplings as BitVector rows with XOR-popcount energy
 kernels and @simd cache updates (/root/reference/src/graphs/SK.jl:17-133).
-TPU-native, a fully-connected model is *matmul-shaped*: the local-field cache
-is lf = J @ sigma + h (one MXU matvec at init — and across a batch of chains a
+Vectorized, a fully-connected model is *matmul-shaped*: the local-field cache
+is lf = J @ sigma + h (one matvec at init — and across a batch of chains a
 [B, N] x [N, N] matmul), and a flip updates lf by adding a scaled row of J
-(one fused VPU op). `neighbors = AllButOne` (/root/reference/src/graphs/SK.jl:165)
+(one fused elementwise op). `neighbors = AllButOne` (/root/reference/src/graphs/SK.jl:165)
 disappears: density is the point.
 """
 
@@ -34,7 +34,7 @@ class FullyConnected(Model):
     scale: float = static(1.0)
     #: run the local-field matmul in bf16 (EXACT when |J| <= 127 and row
     #: sums < 2^24: products are small integers, accumulation is f32; set by
-    #: densify()). v5e executes int8 dots at f32 rate but bf16 at 4x.
+    #: densify()).
     mm_bf16: bool = static(False)
 
     @property
@@ -48,14 +48,19 @@ class FullyConnected(Model):
         import jax.lax as lax
         acc = self._acc_dtype
         if self.mm_bf16:
+            # integer |J| <= 256 and +-1 spins are exact in bf16, and f32
+            # accumulates their integer products exactly below 2^24: exact
             lf = lax.dot_general(self.J.astype(jnp.bfloat16),
                                  sigma.astype(jnp.bfloat16),
                                  dimension_numbers=(((1,), (0,)), ((), ())),
                                  preferred_element_type=jnp.float32)
             lf = lf.astype(acc)
         else:
+            # HIGHEST: a float J must not run in TF32, or the tracked
+            # energy drifts from the recomputed one
             lf = lax.dot_general(self.J, sigma.astype(self.J.dtype),
                                  dimension_numbers=(((1,), (0,)), ((), ())),
+                                 precision=lax.Precision.HIGHEST,
                                  preferred_element_type=acc)
         return lf + self.h.astype(acc)
 
@@ -63,12 +68,13 @@ class FullyConnected(Model):
         acc = self._acc_dtype
         s = sigma.astype(acc)
         lf = self.local_fields(sigma)
-        quad = s @ (lf - self.h.astype(acc))
+        quad = jnp.matmul(s, lf - self.h.astype(acc), precision="highest")
         if jnp.issubdtype(acc, jnp.integer):
             quad = quad // 2  # exact: symmetric J, zero diag => quad is even
         else:
             quad = quad / 2
-        return -(quad + s @ self.h.astype(acc))
+        return -(quad + jnp.matmul(s, self.h.astype(acc),
+                                   precision="highest"))
 
     def init_aux(self, sigma):
         return self.local_fields(sigma)
@@ -118,12 +124,10 @@ def densify(model) -> FullyConnected:
     energies: J materialized as a symmetric [N, N] matrix (int8 when the
     integer couplings fit, preserving exactness via `scale`).
 
-    Why: XLA per-site neighbor gathers are HBM-bound (~7e7 flips/s on RRG
-    N=1e4), while the dense path rides the MXU — local fields become one
-    [B,N]x[N,N] matmul and, for N <= ~4096, the VMEM-resident Pallas SK
-    kernel applies (~1e10 flips/s). Composes with flatten(): e.g.
-    densify(flatten(GraphQuant(..., GraphEA(...)))) puts a wrapped model on
-    the dense kernel. Memory is O(N^2); intended for N up to a few 10^4."""
+    Why: per-site neighbor gathers are memory-bound, while on the dense
+    path local fields become one [B,N]x[N,N] matmul. Composes with
+    flatten(): e.g. densify(flatten(GraphQuant(..., GraphEA(...)))) puts a
+    wrapped model on the dense path. Memory is O(N^2); intended for N up to a few 10^4."""
     from .pairwise import Pairwise
 
     assert isinstance(model, Pairwise), "densify requires a Pairwise model"

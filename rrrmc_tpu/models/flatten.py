@@ -5,15 +5,14 @@ The replica wrappers (Quant/LE/AddFields/Mixed, models/replicas.py) are
 shared index ranges of the composite spin vector. The generic composite
 `delta_all` pays a vmap-over-replicas + reshape + concat per call — fine
 inside sweep kernels, but the single-move samplers (standardMC / bklMC /
-wtmMC / extremal_opt) call it every move, and sub-128-lane reshapes force
-tile repacks (~70us each, see CLAUDE.md perf rules).
+wtmMC / extremal_opt) call it every move.
 
 `flatten(model)` statically merges every pairwise-representable part into ONE
 Pairwise over the composite N — adjacency lists concatenated per spin, all
 couplings/fields/offsets converted to physical units — so those samplers run
 the plain local-fields hot path (O(degree) scatter per move, no replica
 machinery). The reference has no analog (its serial caches are already O(1));
-this is the TPU-native equivalent of inlining the DoubleGraph composition
+this is the vectorized equivalent of inlining the DoubleGraph composition
 algebra (/root/reference/src/Interface.jl:212-268).
 
 Supported: Pairwise, Scaled, Mixed, Double (incl. QuantModel / LEModel /

@@ -4,7 +4,7 @@ non-interacting fields, and trivial debug models.
 Disorder generation happens on the host in numpy (it is one-time setup, not a
 hot path); the resulting padded tables live on device. Each builder mirrors
 the corresponding reference constructor (cited per function) but produces a
-`Pairwise` pytree instead of a specialized Julia type — on TPU one vectorized
+`Pairwise` pytree instead of a specialized Julia type — one vectorized
 padded-adjacency kernel covers them all.
 """
 

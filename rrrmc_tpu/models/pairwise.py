@@ -3,7 +3,7 @@
 This single kernel implements the whole family of 2-body models in the
 reference (EA lattices, RRG, Ising1D, the Suzuki-Trotter ring GraphQT, the
 local-entropy star GraphLE, external fields): adjacency as a dense padded
-[N, Kmax] int32 table (TPU-friendly static shapes; padding entries point at
+[N, Kmax] int32 table (static shapes for jit; padding entries point at
 the sentinel index N and carry J=0), couplings as a matching [N, Kmax] table
 with each symmetric edge stored twice, plus per-spin external fields.
 

@@ -4,16 +4,16 @@ The reference keeps per-pattern stabilities Delta_a = xi_a . sigma in an
 incrementally-updated vector plus ArraySet "marginal" sets p/m so a serial
 move only touches patterns at the decision boundary
 (/root/reference/src/graphs/PercStep.jl:30-43,108-179, PercLinear.jl,
-PercXEntr.jl). TPU-native these models are *matmul-shaped*:
+PercXEntr.jl). Vectorized, these models are *matmul-shaped*:
 
-* aux = Delta [P] int32 = xi @ sigma — one MXU matvec at init ([B,N]x[N,P]
+* aux = Delta [P] int32 = xi @ sigma — one matvec at init ([B,N]x[N,P]
   across a chain batch);
 * a flip of spin i is Delta -= 2 sigma_i xi[:, i] — one fused vector op;
 * delta_all exploits that a flip moves Delta_a by exactly +-2:
       dE_i = sum_a loss(Delta_a - 2 sigma_i xi_ai) - loss(Delta_a)
            = const + sigma_i * (xi^T g)_i / ... — i.e. ONE matvec with
   g_a = loss(Delta_a - 2) - loss(Delta_a + 2), so the rejection-free samplers
-  get the full [N] delta vector from the MXU instead of marginal-set logic.
+  get the full [N] delta vector from one matvec instead of marginal-set logic.
 
 Patterns are +-1 ("xi" absorbs the labels); N must be odd so Delta != 0
 (PercStep.jl:55).
@@ -70,7 +70,9 @@ class Perceptron(Model):
         g_plus = self._loss(aux + 2) - lo    # pattern gains alignment
         tot = jnp.sum(g_minus + g_plus)
         diff = (g_minus - g_plus).astype(self.loss_table.dtype)
-        proj = self.xi.astype(self.loss_table.dtype).T @ diff  # [N] matvec
+        # [N] matvec; HIGHEST keeps float losses out of TF32
+        proj = jnp.matmul(self.xi.astype(self.loss_table.dtype).T, diff,
+                          precision="highest")
         half = sigma.astype(self.loss_table.dtype) * proj
         if jnp.issubdtype(self.loss_table.dtype, jnp.integer):
             return (tot + half) // 2

@@ -3,7 +3,7 @@
 E = -sum over hyperedges (triangles) of sigma_x sigma_y sigma_z, with every
 spin belonging to exactly K triangles (all J = 1). The reference keeps an
 incremental lfields cache updated over unique neighbors
-(/root/reference/src/graphs/PSpin3.jl:62-145); TPU-native the per-spin cavity
+(/root/reference/src/graphs/PSpin3.jl:62-145); vectorized, the per-spin cavity
 sum is one fused [N, K, 2] gather + product + reduce, so the model is aux-free
 (flip = bitflip; delta_all is a single vector pass for all spins and chains).
 

@@ -4,7 +4,7 @@ local entropy (GraphTopologicalLocalEntropy), and the AddFields family.
 
 The reference implements these as DoubleGraphs holding M mirrored `Config`
 copies kept in sync by update_cache! (/root/reference/src/graphs/QT.jl:126-199,
-RE.jl:216-327, LE.jl:183-318, TLE.jl:351-502). TPU-native, the replica axis is
+RE.jl:216-327, LE.jl:183-318, TLE.jl:351-502). Vectorized, the replica axis is
 a *reshape* of the composite spin vector plus a `jax.vmap` of the base model
 over it — no mirrored state, no sync logic; the base model's aux is simply
 batched with a leading replica axis.
@@ -54,7 +54,7 @@ class Replicated(Model):
     (the LE reference spins; they contribute nothing here), replica k lives
     in the contiguous block [(offset + k) * Nk, (offset + k + 1) * Nk).
 
-    This layout is a deliberate TPU deviation from the reference's site-major
+    This layout is a deliberate deviation from the reference's site-major
     RE/LE conventions (/root/reference/src/graphs/RE.jl:255-263,
     LE.jl:227-240): the hot paths slice one replica's spins per move, and a
     contiguous dynamic_slice is fast while a per-chain strided gather costs
@@ -282,7 +282,7 @@ def _fk_table(M: int, gamma: float, beta: float) -> np.ndarray:
 class GraphRE(Model):
     """Interaction part of the robust ensemble: E = -sum_i log(2cosh(gamma*
     mu_i))/beta with mu_i the replica magnetization of site i (RE.jl:70-104).
-    REPLICA-MAJOR layout j = site + k*Nk (TPU deviation from the reference's
+    REPLICA-MAJOR layout j = site + k*Nk (deviation from the reference's
     site-major RE.jl:255-263 — see Replicated); aux = mu [Nk] int32. delta of
     flipping (i,k) is sigma_{ik} * fk(mu_i - sigma_{ik}) via the fk table;
     delta_all is reshape-free (mu tiled across replica blocks)."""
@@ -383,7 +383,7 @@ def _le_classes(M: int, gammaT: float) -> Tuple[float, ...]:
 def GraphLE(Nk: int, M: int, gammaT: float) -> Pairwise:
     """E = -gammaT * sum_i sigma^c_i sum_k sigma_{i,k} (LE.jl:55-84):
     a star of M edges from each reference spin to its replicas. Exact integer
-    Pairwise with scale gammaT. REPLICA-MAJOR block layout (TPU deviation
+    Pairwise with scale gammaT. REPLICA-MAJOR block layout (deviation
     from LE.jl:227-240's interleaved slots): center block = indices [0, Nk),
     replica k block = [(k+1)*Nk, (k+2)*Nk)."""
     if M <= 2:
@@ -503,7 +503,8 @@ class GraphTLE(Model):
         dots = jnp.einsum("ki,kij->ij", ri, rn)         # sum_k s_ik s_jk
         # replica spin (k,i): d1 = 2 gT c_i s_ki ;
         #                     d2 = 2 lT s_ki c_i sum_{j in ∂i} c_j s_kj
-        f_rep = jnp.einsum("ij,kij->ki", cn.astype(ftype()), rn.astype(ftype()))
+        f_rep = jnp.einsum("ij,kij->ki", cn.astype(ftype()),
+                           rn.astype(ftype()), precision="highest")
         cr = (ci[None, :] * ri).astype(ftype())
         d_rep = (2.0 * self.gammaT) * cr \
             + (2.0 * self.lambdaT) * cr * f_rep

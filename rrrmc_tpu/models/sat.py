@@ -3,7 +3,7 @@
 The reference maintains a ClauseCache of per-clause satisfying-variable counts
 S[a] plus the identity list I[a], updated with ~40 lines of branchy
 incremental bookkeeping per flip (/root/reference/src/graphs/SAT.jl:58-320).
-TPU-native the same state is two dense tensors:
+Vectorized, the same state is two dense tensors:
 
 * clause-major:  A [Mc, K] var ids (pad N), L [Mc, K] literal signs +-1 (pad 0)
 * var-major:     T [N, Cmax] clause ids (pad Mc), TL [N, Cmax] literal signs

@@ -1,50 +1,23 @@
-"""Random bits inside Pallas TPU kernels, interpret-mode safe.
+"""Counter-based random bits for Pallas kernels.
 
-Compiled on a real chip the kernels draw from the per-core hardware PRNG
-(pltpu.prng_seed / prng_random_bits). In the TPU *interpreter* (the CPU test
-path, RRRMC_PALLAS_INTERPRET=1) prng_random_bits returns all zeros
-(jax 0.9.0) — which silently turns Metropolis acceptance into a deterministic
-threshold and makes any "physics agrees" test vacuous. This module gates on
-the env flag at trace time: the compiled path is untouched; the interpreted
-path substitutes a stateless murmur3-style counter hash so CPU tests exercise
-real acceptance randomness. Callers must pass a `salt` that differs per draw
-(seed x program id x loop counters).
+A stateless murmur3-style hash of (salt, site, chain): the same function runs
+in the compiled kernel and in interpret mode, so the CPU tests exercise the
+generator that production uses. Callers pass a `salt` that differs per draw
+(seed x sweep x colour); site and chain are global indices, so the bits a
+chain sees do not depend on how chains are blocked or padded.
 """
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
+
+#: Knuth multiplicative constant 0x9E3779B9 (golden ratio)
+GOLD = 0x9E3779B9
 
 
-#: Knuth multiplicative constant as int32 — program seeds are spread as
-#: seed * GOLD + program_id so that sequential user seeds (seed, seed+1, ...)
-#: can never alias another call's (seed, program_id±k) stream (a stride-1
-#: seed schedule otherwise replays a neighboring chain block's bits).
-GOLD = -1640531527  # 0x9E3779B9 as signed int32
-
-
-def program_seed(seed_scalar, program_id):
-    """Decorrelated per-core PRNG seed for pltpu.prng_seed."""
-    import jax.numpy as jnp
-
-    return seed_scalar * jnp.int32(GOLD) + program_id
-
-
-def interpret_mode() -> bool:
-    return bool(int(os.environ.get("RRRMC_PALLAS_INTERPRET", "0")))
-
-
-def interpret_params():
-    """Value for pallas_call(interpret=...)."""
-    return pltpu.InterpretParams() if interpret_mode() else False
-
-
-def _fmix(x):
-    """murmur3 32-bit finalizer (full avalanche)."""
+def fmix(x):
+    """murmur3 32-bit finalizer (full avalanche); uint32 in, uint32 out."""
     x = x ^ (x >> 16)
     x = x * jnp.uint32(0x85EBCA6B)
     x = x ^ (x >> 13)
@@ -53,18 +26,24 @@ def _fmix(x):
     return x
 
 
-def random_bits(shape, salt):
-    """Uniform int32 bits of `shape` (2-D) inside a Pallas kernel.
+def seed_salt(seed):
+    """uint32 stream key of an int32 seed (one fmix: consecutive seeds give
+    unrelated streams)."""
+    return fmix(seed.astype(jnp.uint32) * jnp.uint32(GOLD)
+                + jnp.uint32(0x27D4EB2F))
 
-    Compiled: hardware PRNG (pltpu.prng_seed must already have been called;
-    `salt` is ignored — the hardware stream advances per draw). Interpreted:
-    hash of (salt, position); `salt` (traced int32 scalar) MUST be distinct
-    per draw or draws repeat."""
-    if not interpret_mode():
-        return pltpu.bitcast(pltpu.prng_random_bits(shape), jnp.int32)
-    i0 = jax.lax.broadcasted_iota(jnp.uint32, shape, 0)
-    i1 = jax.lax.broadcasted_iota(jnp.uint32, shape, 1)
-    s = salt.astype(jnp.uint32)
-    x = (i0 * jnp.uint32(0x9E3779B1) + i1 * jnp.uint32(0x85EBCA77)
-         + _fmix(s * jnp.uint32(0xC2B2AE3D) + jnp.uint32(0x27D4EB2F)))
-    return pltpu.bitcast(_fmix(x), jnp.int32)
+
+def draw_salt(key, counter):
+    """uint32 salt of one draw: the stream key advanced by a per-draw
+    counter (e.g. 2 * sweep + colour)."""
+    return fmix(key + counter.astype(jnp.uint32) * jnp.uint32(0xC2B2AE3D))
+
+
+def random_bits(site, chain, salt):
+    """Uniform int32 bits at broadcast (site, chain) positions.
+
+    site, chain: non-negative int32 index arrays that broadcast together;
+    salt: uint32 scalar from `draw_salt`."""
+    x = (site.astype(jnp.uint32) * jnp.uint32(0x9E3779B1)
+         + chain.astype(jnp.uint32) * jnp.uint32(0x85EBCA77) + salt)
+    return jax.lax.bitcast_convert_type(fmix(x), jnp.int32)

@@ -1,31 +1,31 @@
-"""Pallas TPU kernel for the EA-lattice checkerboard sweep — the
-speed-of-light path of the framework.
+"""Checkerboard sweep of an EA lattice as one Pallas kernel on the Triton route.
 
-The XLA sweep (samplers/sweep.py) round-trips sigma and the local-field aux
-through HBM on every color step and pays threefry/rbg key machinery for its
-uniforms. This kernel instead:
+The XLA sweep (samplers/sweep.py) recomputes all N local fields after every
+colour step, draws a threefry uniform and an `exp` for every site, and
+round-trips sigma and the int32 local-field cache through device memory.
+This kernel keeps each block of chains in one program for all `n_sweeps`
+sweeps:
 
-* keeps each chain block's spins resident in VMEM for ALL `n_sweeps` sweeps
-  (HBM traffic = one read + one write of sigma per call);
-* draws acceptance randomness from the per-core hardware PRNG
-  (pltpu.prng_seed / prng_random_bits);
-* recomputes local fields on the fly from in-VMEM rolls (no aux tensor).
+* layout [N, B]: sites on rows, chains contiguous, so every site row is one
+  coalesced load of BT int8 spins; one program per block of BT chains, and
+  blocks never interact;
+* the sweep loop (dynamic trip count), the two colours and the site tiles
+  all run inside the program. A tile holds TS sites of ONE colour (sites are
+  enumerated colour-compacted), so no work is spent on the inactive half;
+  tiles store only the sites they own, and a block barrier separates the
+  colour steps (checkerboard: same-colour sites are never neighbours);
+* neighbours are index loads from the spin ref: the row of x +- e_d with the
+  periodic wrap folded into the index, the same identity the roll-based
+  local field of models/lattice.py uses;
+* acceptance is integer: dE = 2 * half with half = sigma * lf, accept iff
+  half <= 0 or bits < th[half], where th is a tiny int32 threshold table
+  (the local field takes at most 2 * D * |J|max + |h|max values) and bits
+  come from the counter hash of ops/prng.py. Energies are tracked exactly in
+  int32.
 
-Layout is the crucial TPU decision: spins are [N, BT] — CHAINS ON LANES,
-SITES ON SUBLANES — so the periodic-neighbor rolls are sublane-axis rotates
-(cheap register/addressing moves) instead of cross-lane shuffles, every
-per-site constant (couplings, parity, wrap masks) is a [N, 1] column
-broadcast across lanes, and all arithmetic is 32-bit (Mosaic's rotate only
-handles 32-bit data). Wraparound on the flattened lattice uses the
-two-roll + wrap-mask identity per direction.
-
-Restricted to integer-coupling LatticeEA (the benchmark-headline family;
-integer external fields ride as the last column of the Jp direction table —
-the AddFields composition, /root/reference/src/graphs/AddFields.jl:16-123);
-everything else uses the XLA path. Acceptance matches
-metropolis_accept (/root/reference/src/RRRMC.jl:39): accept iff dE <= 0 or
-u < exp(-beta dE), with u compared in the signed-int32 domain (no u32->f32
-cast on TPU).
+Restricted to integer-coupling LatticeEA with even L (checkerboard);
+integer external fields ride as one more coupling row. Acceptance matches
+metropolis_accept (/root/reference/src/RRRMC.jl:39).
 """
 
 from __future__ import annotations
@@ -36,221 +36,238 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgt
 
-from .prng import interpret_params, program_seed, random_bits
+from .prng import draw_salt, random_bits, seed_salt
 
-#: set RRRMC_PALLAS_INTERPRET=1 to run the kernel in the TPU interpreter
-#: (CPU-testable; used by the test suite). The interpreter's
-#: pltpu.prng_random_bits is all-zeros, so acceptance randomness comes from
-#: ops/prng.py's counter hash there.
-_INTERPRET = interpret_params()
+#: threshold tables longer than this use the exp path instead (fixed-point
+#: couplings make the local field range wide)
+MAX_TABLE = 64
 
-
-def _build_dir_tables(model):
-    """[N, D] coupling columns: Jp[:, d] = J on edge i -> i+stride_d,
-    Jm[:, d] = J on edge i-stride_d -> i."""
-    Jd = np.asarray(model.Jd)
-    D = model.D
-    n = model.N
-    Jp = np.empty((n, D), dtype=np.int32)
-    Jm = np.empty((n, D), dtype=np.int32)
-    for d in range(D):
-        Jp[:, d] = Jd[d].reshape(n)
-        Jm[:, d] = np.roll(Jd[d], 1, axis=d).reshape(n)
-    return Jp, Jm
+#: chains per program and warps per program: the fastest pair measured on
+#: an H100 at EA-3D L=16 and L=32 with 8192 chains, among block widths
+#: 16..128 and 2..8 warps
+BLOCK_CHAINS = 64
+NUM_WARPS = 8
 
 
-def _sweep_kernel(seed_ref, ns_ref, beta2s_ref, th_ref, sigma_ref, jp_ref,
-                  jm_ref, sigma_out, dE_out, *, L, D, BT, max_half,
-                  has_field=False):
-    """th_ref [max_half] SMEM: precomputed int32 acceptance thresholds for
-    half = sigma*lf in 1..max_half (half <= 0 always accepts). The integer
-    local field takes at most 2*D*|J|max+|h| values, so the acceptance
-    probability is a tiny table — selects replace the per-element exp chain
-    (exp + scale + clip + 2 converts on [N, BT] per color step)."""
+def _div(a, b: int):
+    """Truncating int32 division by a constant (operands are >= 0)."""
+    return jax.lax.div(a, jnp.int32(b))
+
+
+def _rem(a, b: int):
+    return jax.lax.rem(a, jnp.int32(b))
+
+
+def _site_of(k, colour, L: int, D: int):
+    """Site index of the k-th site of `colour` (0 = even coordinate sum).
+    Row q = k // (L/2) of the lattice's innermost axis holds L/2 sites of
+    each colour at alternating x."""
+    half_l = L // 2
+    q = _div(k, half_l)
+    par = jnp.zeros_like(q)
+    qq = q
+    for _ in range(D - 1):
+        par = par + _rem(qq, L)
+        qq = _div(qq, L)
+    x = 2 * _rem(k, half_l) + _rem(par + colour, 2)
+    return q * L + x
+
+
+def site_order(L: int, D: int) -> np.ndarray:
+    """[2, N/2] site indices in the kernel's colour-compacted order."""
+    k = jnp.arange(L ** D // 2, dtype=jnp.int32)
+    return np.stack([np.asarray(_site_of(k, c, L, D)) for c in (0, 1)])
+
+
+def _sweep_kernel(seed_ref, ns_ref, beta2s_ref, th_ref, jc_ref, e_ref,
+                  sig_in_ref, sig_ref, e_out_ref, *, L, D, BT, TS,
+                  max_half, has_field, barrier):
+    """One program = one block of BT chains. sig_ref [N, BT] is the output
+    block, aliased to the input (sig_in_ref is never read); jc_ref
+    [2, 2D(+1), N/2] holds, per colour and compacted site, the couplings
+    toward +e_d and -e_d (and the field)."""
+    del sig_in_ref
     N = L ** D
-    seed_p = program_seed(seed_ref[0], pl.program_id(0))
-    pltpu.prng_seed(seed_p)
-    salt0 = seed_p * jnp.int32(1000003)
-    n_sweeps = ns_ref[0]    # dynamic trip count: one compile for any length
-    beta2s = beta2s_ref[0]  # used only when the table is disabled
-
-    idx = jax.lax.broadcasted_iota(jnp.int32, (N, 1), 0)
-    parity = jnp.zeros((N, 1), jnp.int32)
+    n_tiles = (N // 2) // TS
     strides = [L ** (D - 1 - d) for d in range(D)]
-    coords = []
-    for s in strides:
-        c = (idx // s) % L
-        coords.append(c)
-        parity = parity + c
-    even = (parity % 2) == 0           # [N, 1], broadcasts across chains
+    cols = jax.lax.broadcasted_iota(jnp.int32, (1, BT), 1)
+    chain = pl.program_id(0) * BT + cols
+    key = seed_salt(seed_ref[0])
+    beta2s = beta2s_ref[0]       # exp path only
 
-    wrap_hi = [c == (L - 1) for c in coords]
-    wrap_lo = [c == 0 for c in coords]
-
-    def roll_up(x, k):
-        """x shifted so out[i] = x[(i + k) % N] (sublane-axis rotate;
-        measured faster than static slice+concat on v5e)."""
-        return pltpu.roll(x, N - k, axis=0)
-
-    def local_fields(sig):
-        # has_field: jp_ref is [N, D+1] with the external-field column h in
-        # column D; h is flip-invariant so the roll identity needs no other
-        # change. Static flag: the field-free headline family pays zero
-        # extra vector work (the add costs ~5% of the EA-3D benchmark).
-        if has_field:
-            lf = jnp.zeros((N, BT), jnp.int32) + jp_ref[:, D][:, None]
-        else:
-            lf = jnp.zeros((N, BT), jnp.int32)
+    def tile(colour, salt, t, dE):
+        k = t * TS + jax.lax.broadcasted_iota(jnp.int32, (TS, 1), 0)
+        i = _site_of(k, colour, L, D)
+        lf = None
         for d, s in enumerate(strides):
-            nb_p = jnp.where(wrap_hi[d],
-                             roll_up(sig, N - s * (L - 1)),
-                             roll_up(sig, s))
-            nb_m = jnp.where(wrap_lo[d],
-                             roll_up(sig, s * (L - 1)),
-                             roll_up(sig, N - s))
-            lf = lf + jp_ref[:, d][:, None] * nb_p \
-                    + jm_ref[:, d][:, None] * nb_m
-        return lf
-
-    def color_step(sig, dE_acc, mask, salt):
-        half = sig * local_fields(sig)             # dE_int = 2 * half
-        # integer-domain acceptance: r ~ U(int32) < p*2^32 - 2^31 <=> u < p,
-        # thresholds from the tiny SMEM table (half <= 0 forces accept)
-        rbits = random_bits((N, BT), salt)
-        if max_half:   # small level set: thresholds by select chain
-            thresh = jnp.full((N, BT), th_ref[0], jnp.int32)
-            for v in range(2, max_half + 1):
-                thresh = jnp.where(half >= v, th_ref[v - 1], thresh)
-        else:          # wide integer range (fixed-point couplings): exp
+            c = _rem(_div(i, s), L)
+            up = jnp.where(c == L - 1, i - s * (L - 1), i + s)
+            dn = jnp.where(c == 0, i + s * (L - 1), i - s)
+            jp = jc_ref[colour, 2 * d, pl.ds(t * TS, TS)][:, None]
+            jm = jc_ref[colour, 2 * d + 1, pl.ds(t * TS, TS)][:, None]
+            t_d = (jp * sig_ref[up, cols].astype(jnp.int32)
+                   + jm * sig_ref[dn, cols].astype(jnp.int32))
+            lf = t_d if lf is None else lf + t_d
+        if has_field:
+            lf = lf + jc_ref[colour, 2 * D, pl.ds(t * TS, TS)][:, None]
+        sig = sig_ref[i, cols].astype(jnp.int32)
+        half = sig * lf                                  # dE = 2 * half
+        bits = random_bits(i, chain, salt)
+        if max_half:
+            th = th_ref[jnp.clip(half, 1, max_half) - 1]
+        else:
             p = jnp.exp(-beta2s * half.astype(jnp.float32))
-            thresh = jnp.clip(
-                p * jnp.float32(4294967296.0) - jnp.float32(2147483648.0),
-                jnp.float32(-2147483648.0),
-                jnp.float32(2147483520.0)).astype(jnp.int32)
-        acc = mask & ((half <= 0) | (rbits < thresh))
-        sig = jnp.where(acc, -sig, sig)
-        dE_acc = dE_acc + 2 * jnp.sum(
-            jnp.where(acc, half, 0), axis=0, keepdims=True,
-            dtype=jnp.int32)  # explicit: x64 mode must not widen the carry
-        return sig, dE_acc
+            th = jnp.clip(p * 4294967296.0 - 2147483648.0,
+                          -2147483648.0, 2147483520.0).astype(jnp.int32)
+        acc = (half <= 0) | (bits < th)
+        plgt.store(sig_ref.at[i, cols], (-sig).astype(jnp.int8), mask=acc)
+        return dE + 2 * jnp.sum(jnp.where(acc, half, 0), axis=0,
+                                dtype=jnp.int32)
 
-    def one_sweep(sw, carry):
-        sig, dE_acc = carry
-        sig, dE_acc = color_step(sig, dE_acc, even, salt0 + 2 * sw)
-        sig, dE_acc = color_step(sig, dE_acc, ~even, salt0 + 2 * sw + 1)
-        return sig, dE_acc
+    def one_sweep(sw, dE):
+        for colour in (0, 1):
+            salt = draw_salt(key, 2 * sw + colour)
+            dE = jax.lax.fori_loop(jnp.int32(0), jnp.int32(n_tiles),
+                                   partial(tile, colour, salt), dE)
+            if barrier:
+                plgt.debug_barrier()
+        return dE
 
-    sig0 = sigma_ref[:].astype(jnp.int32)
-    dE0 = jnp.zeros((1, BT), jnp.int32)
-    sig, dE = jax.lax.fori_loop(0, n_sweeps, one_sweep, (sig0, dE0))
-    sigma_out[:] = sig.astype(jnp.int8)
-    dE_out[:] = dE
+    dE = jax.lax.fori_loop(jnp.int32(0), ns_ref[0], one_sweep,
+                           jnp.zeros((BT,), jnp.int32))
+    e_out_ref[...] = e_ref[...] + dE
 
 
 def accept_thresholds(beta2s: float, max_half: int) -> np.ndarray:
     """int32 thresholds th[v-1] for half = v in 1..max_half: accept iff
-    rbits < th where rbits ~ U(int32) — i.e. with prob e^(-beta2s*v)."""
+    bits < th where bits ~ U(int32) — i.e. with prob e^(-beta2s*v)."""
     v = np.arange(1, max_half + 1, dtype=np.float64)
     p = np.exp(-float(beta2s) * v)
     return np.clip(p * 4294967296.0 - 2147483648.0,
                    -2147483648.0, 2147483520.0).astype(np.int32)
 
 
-@partial(jax.jit, static_argnames=("L", "D", "block_chains", "max_half",
-                                   "has_field"))
-def _pallas_sweep(sigma, E, Jp, Jm, seed, n_sweeps, beta2s, th, *, L, D,
-                  block_chains, max_half, has_field=False):
-    # transposes stay inside the jit: the kernel layout is [sites, chains]
-    sigmaT = sigma.T
-    N, B = sigmaT.shape
+def tile_sites(N: int, cap: int = 256) -> int:
+    """Largest power of two <= cap dividing the N/2 sites of one colour."""
+    n2 = N // 2
+    ts = 1
+    while ts * 2 <= cap and n2 % (ts * 2) == 0:
+        ts *= 2
+    return ts
+
+
+@partial(jax.jit, static_argnames=("L", "D", "max_half", "has_field",
+                                   "block_chains", "tile", "num_warps",
+                                   "n_ckpt", "interpret"))
+def _sweep(sigma, E, jc, th, beta2s, seed, step, *, L, D, max_half,
+           has_field, block_chains, tile, num_warps, n_ckpt, interpret):
+    """n_ckpt kernel dispatches of `step` sweeps each, in one jit: the
+    [N, B] layout is kept between checkpoints. Returns (sigma, E,
+    Es [n_ckpt, B])."""
+    B, N = sigma.shape
     BT = block_chains
-    grid = (B // BT,)
-    kernel = partial(_sweep_kernel, L=L, D=D, BT=BT, max_half=max_half,
-                     has_field=has_field)
-    sig_out, dE = pl.pallas_call(
+    Bp = -(-B // BT) * BT
+    # chains padded to whole blocks; the padding chains are dropped after
+    sigT = jnp.pad(sigma.T, ((0, 0), (0, Bp - B)), constant_values=1)
+    Ep = jnp.pad(E.astype(jnp.int32), (0, Bp - B))
+    kernel = partial(_sweep_kernel, L=L, D=D, BT=BT, TS=tile,
+                     max_half=max_half, has_field=has_field,
+                     barrier=not interpret)
+    whole = lambda shape: pl.BlockSpec(shape, lambda j: (0,) * len(shape))
+    call = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),      # seed
-            pl.BlockSpec(memory_space=pltpu.SMEM),      # n_sweeps
-            pl.BlockSpec(memory_space=pltpu.SMEM),      # beta2s
-            pl.BlockSpec(memory_space=pltpu.SMEM),      # thresholds
-            pl.BlockSpec((N, BT), lambda j: (0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),      # Jp [N, D]
-            pl.BlockSpec(memory_space=pltpu.VMEM),      # Jm [N, D]
-        ],
-        out_specs=[
-            pl.BlockSpec((N, BT), lambda j: (0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, BT), lambda j: (0, j), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((N, B), jnp.int8),
-            jax.ShapeDtypeStruct((1, B), jnp.int32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=_INTERPRET,
-    )(seed, n_sweeps, beta2s, th, sigmaT, Jp, Jm)
-    return sig_out.T, E + dE[0]
+        grid=(Bp // BT,),
+        in_specs=[whole((1,)), whole((1,)), whole((1,)), whole(th.shape),
+                  whole(jc.shape),
+                  pl.BlockSpec((BT,), lambda j: (j,)),
+                  pl.BlockSpec((N, BT), lambda j: (0, j))],
+        out_specs=[pl.BlockSpec((N, BT), lambda j: (0, j)),
+                   pl.BlockSpec((BT,), lambda j: (j,))],
+        out_shape=[jax.ShapeDtypeStruct((N, Bp), jnp.int8),
+                   jax.ShapeDtypeStruct((Bp,), jnp.int32)],
+        input_output_aliases={6: 0},
+        compiler_params=plgt.CompilerParams(num_warps=num_warps,
+                                            num_stages=1),
+        backend="triton",
+        interpret=interpret,
+        name="lattice_sweep",
+    )
+
+    def checkpoint(carry, k):
+        sigT, Ep = carry
+        sigT, Ep = call(seed + k, step, beta2s, th, jc, Ep, sigT)
+        return (sigT, Ep), Ep[:B]
+
+    (sigT, Ep), Es = jax.lax.scan(checkpoint, (sigT, Ep),
+                                  jnp.arange(n_ckpt, dtype=jnp.int32))
+    return sigT[:, :B].T, Ep[:B].astype(E.dtype), Es
 
 
-class PallasSweeper:
-    """Reusable pallas-sweep runner: builds the direction tables once and
-    keeps them on device; each call is a single jitted dispatch."""
+def kernel_eligible(model) -> bool:
+    """Integer-coupling LatticeEA with even L: the checkerboard this kernel
+    sweeps."""
+    from ..models.lattice import LatticeEA
 
-    def __init__(self, model, beta: float, block_chains: int = 0):
-        from ..models.lattice import LatticeEA
+    return (isinstance(model, LatticeEA)
+            and jnp.issubdtype(model.Jd.dtype, jnp.integer)
+            and jnp.issubdtype(model.h.dtype, jnp.integer)
+            and model.L % 2 == 0)
 
-        assert isinstance(model, LatticeEA), "pallas sweep requires LatticeEA"
-        assert jnp.issubdtype(model.Jd.dtype, jnp.integer), \
-            "pallas sweep requires integer couplings"
-        assert model.L % 2 == 0, "checkerboard requires even L"
-        assert jnp.issubdtype(model.h.dtype, jnp.integer), \
-            "integer-domain fields only"
-        Jp, Jm = _build_dir_tables(model)
-        hcol = np.asarray(model.h, np.int32).reshape(-1, 1)
-        self.has_field = bool(np.any(hcol))
-        self.Jp = jnp.asarray(np.concatenate([Jp, hcol], axis=1)
-                              if self.has_field else Jp)
-        self.Jm = jnp.asarray(Jm)
-        self.beta2s = jnp.asarray([2.0 * beta * model.scale], jnp.float32)
-        # select-chain thresholds only pay off for small level sets;
-        # fixed-point couplings (|lf| up to ~1e5 grid units) keep the exp
-        # path (max_half=0 disables the table)
-        mh = int((np.abs(Jp).sum(axis=1) + np.abs(Jm).sum(axis=1)
-                  + np.abs(hcol[:, 0])).max())
-        self.max_half = mh if mh <= 64 else 0
-        self.th = jnp.asarray(accept_thresholds(
-            2.0 * beta * model.scale, max(self.max_half, 1)))
-        self.L, self.D = model.L, model.D
+
+class LatticeSweeper:
+    """Kernel runner for one (model, beta): builds the colour-compacted
+    coupling table and the threshold table once; each call is one jitted
+    dispatch of `n_sweeps` sweeps over all chains.
+
+    block_chains: chains per program (power of two); interpret=True runs
+    the kernel in the Pallas interpreter (tests only)."""
+
+    def __init__(self, model, beta: float, *,
+                 block_chains: int = BLOCK_CHAINS, interpret: bool = False):
+        if not kernel_eligible(model):
+            raise ValueError("the lattice sweep kernel needs an integer-"
+                             "coupling LatticeEA with even L")
+        L, D, N = model.L, model.D, model.N
+        Jd = np.asarray(model.Jd, np.int32)
+        h = np.asarray(model.h, np.int32).reshape(N)
+        rows = []
+        for d in range(D):
+            rows.append(Jd[d].reshape(N))                       # toward +e_d
+            rows.append(np.roll(Jd[d], 1, axis=d).reshape(N))   # toward -e_d
+        self.has_field = bool(np.any(h))
+        if self.has_field:
+            rows.append(h)
+        table = np.stack(rows)                                   # [K, N]
+        order = site_order(L, D)
+        self.jc = jnp.asarray(np.stack([table[:, order[c]] for c in (0, 1)]))
+        mh = int(np.abs(table).sum(axis=0).max())
+        self.max_half = mh if mh <= MAX_TABLE else 0
+        beta2s = 2.0 * float(beta) * float(model.scale)
+        self.th = jnp.asarray(accept_thresholds(beta2s, max(self.max_half, 1)))
+        self.beta2s = jnp.asarray([beta2s], jnp.float32)
+        self.L, self.D = L, D
+        self.tile = tile_sites(N)
         self.block_chains = block_chains
+        self.num_warps = NUM_WARPS
+        self.interpret = interpret
 
-    def __call__(self, sigma, E, *, seed: int, n_sweeps: int):
-        """sigma [B, N] int8, E [B] int32 -> (sigma', E'), exact int32 E
-        tracking. B must be a multiple of block_chains (chains on lanes);
-        block_chains=0 auto-picks the widest of 512/384/256/128 that tiles B
-        and fits VMEM (BT=512 measured 5.0e10 vs 3.4e10 at 128 on the
-        EA-3D L=16 benchmark; >=1024 fails to compile)."""
-        B, N = sigma.shape
-        bt = self.block_chains
-        if not bt:
-            # ~20 B/chain/site: double-buffered int8 sigma windows in+out
-            # + the in-kernel int32 sig + int32 lf temporaries
-            from .tiling import auto_block_chains
-            bt = auto_block_chains(B, 20 * N)
-        assert B % bt == 0, (B, bt)
-        return _pallas_sweep(sigma, E, self.Jp, self.Jm,
-                             jnp.asarray([seed], jnp.int32),
-                             jnp.asarray([n_sweeps], jnp.int32), self.beta2s,
-                             self.th, L=self.L, D=self.D,
-                             block_chains=bt, max_half=self.max_half,
-                             has_field=self.has_field)
+    def run(self, sigma, E, *, seed, n_ckpt: int, step: int):
+        """sigma [B, N] int8, E [B] int32 -> (sigma', E', Es [n_ckpt, B]):
+        n_ckpt checkpoints of `step` sweeps each; any B (the last block of
+        chains is padded). seed: int32 scalar; checkpoint k draws from
+        stream seed + k."""
+        return _sweep(sigma, E, self.jc, self.th, self.beta2s,
+                      jnp.asarray(seed, jnp.int32).reshape(1),
+                      jnp.asarray([step], jnp.int32),
+                      L=self.L, D=self.D, max_half=self.max_half,
+                      has_field=self.has_field,
+                      block_chains=self.block_chains, tile=self.tile,
+                      num_warps=self.num_warps, n_ckpt=n_ckpt,
+                      interpret=self.interpret)
 
-
-def sweep_ea_pallas(model, beta: float, sigma, E, *, seed: int,
-                    n_sweeps: int, block_chains: int = 0):
-    """One-shot convenience wrapper around PallasSweeper."""
-    return PallasSweeper(model, beta, block_chains)(
-        sigma, E, seed=seed, n_sweeps=n_sweeps)
+    def __call__(self, sigma, E, *, seed, n_sweeps: int):
+        """One checkpoint of n_sweeps sweeps -> (sigma', E')."""
+        sigma, E, _ = self.run(sigma, E, seed=seed, n_ckpt=1, step=n_sweeps)
+        return sigma, E

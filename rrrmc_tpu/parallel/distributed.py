@@ -12,8 +12,8 @@ tests/test_distributed.py with 2 spawned CPU processes).
 Topology mapping: chains (and disorder realizations) are embarrassingly
 parallel, so the chain axis shards over (hosts x local devices) with zero
 intra-run communication — only observable reductions and parallel-tempering
-rank exchanges touch the network (psum / all_gather over ICI within a slice,
-DCN across hosts; XLA inserts the right collective from the sharding).
+rank exchanges touch the interconnect (psum / all_gather; XLA inserts the
+collective from the sharding and hands it to NCCL on GPUs).
 """
 
 from __future__ import annotations
@@ -34,8 +34,8 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Join the distributed runtime (jax.distributed.initialize). Arguments
     default to the standard env vars (JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID); on managed TPU pods all three are
-    auto-detected and may be omitted entirely."""
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID). On a machine that announces no
+    cluster, pass all three (coordinator "localhost:<port>")."""
     kw = {}
     if coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS"):
         kw["coordinator_address"] = (coordinator_address or

@@ -79,41 +79,17 @@ def sample_sharded(sampler, model, mesh: Mesh, *args, chains: int,
     return sampler(model, *args, chains=chains, state=state, **kw)
 
 
-def _disorder_kernel_eligible(sampler, model, chains: int, kw) -> bool:
-    """True iff `sampler` would take a Pallas kernel route on this concrete
-    model — the disorder study then runs per-instance kernel dispatches
-    (shared compile) instead of the vmapped XLA path."""
-    from ..samplers.common import concrete_model
+def _disorder_kernel_eligible(sampler, model, kw) -> bool:
+    """True iff `sampler` would take a kernel route on this concrete model —
+    the disorder study then runs per-instance kernel dispatches (shared
+    compile) instead of the vmapped XLA path."""
+    from ..samplers.common import choose_route
+    from ..samplers.sweep import sweepMC
 
-    if kw.get("hook") is not None or kw.get("observer") is not None:
+    if sampler is not sweepMC:
         return False
-    backend = kw.get("backend", "auto")
-    if backend == "xla" or not concrete_model(model):
-        return False
-    on_tpu = jax.default_backend() != "cpu"
-    from ..samplers.bkl import bklMC
-    from ..samplers.eo import extremal_opt
-    from ..samplers.metropolis import standardMC
-    from ..samplers.rrr import rrrMC
-    from ..samplers.sweep import (_pallas_eligible, _site_sweep_eligible,
-                                  sweepMC)
-    from ..samplers.wtm import wtmMC
-
-    if sampler in (bklMC, wtmMC, rrrMC):
-        from ..ops.rejfree_pallas import pallas_rejfree_eligible
-        return ((on_tpu or backend == "pallas")
-                and pallas_rejfree_eligible(model, chains))
-    if sampler is extremal_opt:
-        from ..ops.eo_pallas import pallas_eo_eligible
-        return ((on_tpu or backend == "pallas")
-                and pallas_eo_eligible(model, chains))
-    if sampler is standardMC:
-        return backend == "pallas"       # explicit opt-in, as standardMC
-    if sampler is sweepMC:
-        return ((on_tpu or backend == "pallas")
-                and (_pallas_eligible(model, chains)
-                     or _site_sweep_eligible(model, chains)))
-    return False
+    return choose_route("sweepMC", model,
+                        backend=kw.get("backend", "auto")) != "xla"
 
 
 def sample_disorder(sampler, models: Sequence, *args, chains: int,
@@ -126,14 +102,11 @@ def sample_disorder(sampler, models: Sequence, *args, chains: int,
     `models` must share static metadata (same builder, same sizes). Two
     execution modes:
 
-    * kernel mode (no mesh, concrete models, sampler would take a Pallas
+    * kernel mode (no mesh, concrete models, sampler would take a kernel
       route): one dispatch per instance, all sharing ONE compile (the
       per-instance tables are traced kernel arguments, so the jit cache
-      hits across instances). On a single-TensorCore chip each dispatch
-      already saturates the core, so sequential instance dispatches match
-      a table-stacked kernel grid axis to within dispatch overhead — and
-      compose with every kernel family. LAST_ROUTE reports the kernel
-      backend and the instance count.
+      hits across instances). LAST_ROUTE reports the kernel backend and
+      the instance count.
     * vmap mode (otherwise): array leaves stack on a leading axis, the
       whole sampler is vmapped over it, and (optionally) that axis is
       sharded over `mesh` — kernel routes decline traced models, so this
@@ -149,7 +122,7 @@ def sample_disorder(sampler, models: Sequence, *args, chains: int,
     states = [init_state(m, chains, seed + 104729 * d)
               for d, m in enumerate(models)]
     if mesh is None and kw.get("state") is None and all(
-            _disorder_kernel_eligible(sampler, m, chains, kw)
+            _disorder_kernel_eligible(sampler, m, kw)
             for m in models):
         results = []
         for d, (m, st) in enumerate(zip(models, states)):

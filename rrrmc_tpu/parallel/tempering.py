@@ -3,7 +3,7 @@ over the device mesh.
 
 New component relative to the reference (which only offers C0 warm-start
 annealing, /root/reference/src/RRRMC.jl:59-60; SURVEY.md §2.4 names this as a
-required gap-fill). Design for ICI efficiency: configurations NEVER move
+required gap-fill). Design for interconnect efficiency: configurations NEVER move
 between devices. Each (slot, chain) carries a ladder `rank`; a swap exchanges
 the *temperature assignment* (rank), not the spins, so the only cross-device
 traffic per swap round is an all_gather of per-chain energies and ranks —
@@ -98,9 +98,6 @@ def _pt_round(model, masks, betas, n_sweeps, axis_name, chain_axis,
               state: PTState, swap_key, parity):
     """n_sweeps checkerboard sweeps at each slot's current beta, then one
     swap round. Operates on the local shard [Tl, B, ...]."""
-    if chain_axis is not None:
-        # distinct swap randomness per chain shard
-        swap_key = jax.random.fold_in(swap_key, jax.lax.axis_index(chain_axis))
     beta_chain = betas[state.rank]                                  # [Tl, B]
 
     def slot_sweeps(sigma, aux, E, key, beta):
@@ -117,7 +114,13 @@ def _pt_round(model, masks, betas, n_sweeps, axis_name, chain_axis,
 
     T = betas.shape[0]
     B = sigma.shape[1]
-    u = jax.random.uniform(swap_key, (T, B), ftype())  # replicated draw
+    # swap uniforms for ALL chains from the replicated key, then this
+    # shard's columns: chain b draws the same u however chains are sharded
+    n_shards = 1 if chain_axis is None else jax.lax.axis_size(chain_axis)
+    u = jax.random.uniform(swap_key, (T, B * n_shards), ftype())
+    if chain_axis is not None:
+        u = jax.lax.dynamic_slice_in_dim(
+            u, jax.lax.axis_index(chain_axis) * B, B, axis=1)
     E_phys = model.to_physical(E)
     new_rank, moved = _swap_ranks(E_phys, state.rank, betas, u, parity,
                                   axis_name)

@@ -1,7 +1,7 @@
 """Shared sampler scaffolding: batched chain state, init, and the scan driver.
 
 The reference advances ONE chain in a Julia while-loop
-(/root/reference/src/RRRMC.jl:100-119). The TPU execution model is a batch of
+(/root/reference/src/RRRMC.jl:100-119). The execution model here is a batch of
 `chains` independent chains advanced in lockstep: every per-move function is
 written single-chain and vmapped, the time loop is a `lax.scan` with a
 checkpoint emission every `step` moves (the vectorized analog of the `hook` /
@@ -22,23 +22,60 @@ from ..core.model import Model, random_spins
 #: arbitrary default seed, mirroring /root/reference/src/RRRMC.jl:82
 DEFAULT_SEED = 167432777111 % (2 ** 31)
 
-#: which execution path the LAST sampler call actually took (routing is
-#: automatic, so users otherwise can't tell): {"backend": "xla" |
-#: "pallas-...", ...} plus kernel diagnostics (acc / z_over_n arrays,
-#: unsynced). experiments.runtest reports it; purely informational.
+#: which execution path the LAST sampler call took (routing is automatic,
+#: so users otherwise can't tell): {"backend": "xla" | kernel route, ...}
+#: plus route diagnostics. experiments.runtest reports it; informational.
 LAST_ROUTE: dict = {}
 
 
 def concrete_model(model) -> bool:
     """True iff every array leaf of the model is concrete (not a jax
-    tracer). Kernel auto-routing must DECLINE traced models — under
-    sample_disorder's vmap (or any user jit over the model) the kernel
-    constructors' host-side table transforms would crash on tracers; the
-    XLA paths trace fine."""
-    import jax
-
+    tracer). Kernel routing must DECLINE traced models — under
+    sample_disorder's vmap (or any user jit over the model) the kernel's
+    host-side table builds would crash on tracers; the XLA paths trace
+    fine."""
     return not any(isinstance(leaf, jax.core.Tracer)
                    for leaf in jax.tree_util.tree_leaves(model))
+
+
+def _spans_devices(state) -> bool:
+    """True iff the state's spins are committed across several devices (a
+    Pallas call is not partitioned automatically; XLA's path is)."""
+    sigma = getattr(state, "sigma", None)
+    sharding = getattr(sigma, "sharding", None)
+    return sharding is not None and len(sharding.device_set) > 1
+
+
+def choose_route(sampler: str, model, *, backend: str = "auto",
+                 state=None, platform: Optional[str] = None) -> str:
+    """The one routing decision of every sampler call: "xla" or the name of
+    a kernel route.
+
+    A kernel is taken only on a GPU, for a concrete model the kernel
+    accepts, with state on one device. backend="xla" forces the plain path;
+    backend="pallas" demands the kernel and raises ValueError where this
+    sampler, model or platform has none — it is never mapped to XLA."""
+    if backend not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown backend {backend!r}: "
+                         "use 'auto', 'xla' or 'pallas'")
+    if backend == "xla":
+        return "xla"
+    from ..ops.sweep_pallas import kernel_eligible
+
+    platform = platform or jax.default_backend()
+    # the one kernel route: sweepMC's lattice sweep; every other sampler,
+    # and every model the kernel declines, runs its plain XLA path
+    has_kernel = sampler == "sweepMC"
+    if (has_kernel and platform == "gpu" and concrete_model(model)
+            and not _spans_devices(state) and kernel_eligible(model)):
+        return "triton-lattice-sweep"
+    if backend == "pallas":
+        raise ValueError(
+            f"backend='pallas': {sampler} has no kernel for "
+            f"{type(model).__name__} on platform {platform!r}"
+            + ("" if has_kernel else " (no kernel route exists for it)")
+            + "; use backend='auto' or 'xla'")
+    return "xla"
 
 
 def set_route(backend: str, **extra):
@@ -110,31 +147,6 @@ def bound_cache_put(cache: dict, key, value, limit: int = 8):
     if key not in cache and len(cache) >= limit:
         cache.pop(next(iter(cache)))
     cache[key] = value
-
-
-@jax.jit
-def init_lfT(model, sigma):
-    """[N, B] local-field table for the Pallas kernels: int32 for integer
-    couplings (exact), f32 for float couplings. Module-level jit: a per-call
-    `jax.jit(lambda ...)` would recompile on EVERY call (the jit cache is
-    keyed by function identity) — ~0.8s a pop here."""
-    lf = jax.vmap(model.local_fields)(sigma).T
-    dt = (jnp.int32 if jnp.issubdtype(lf.dtype, jnp.integer)
-          else jnp.float32)
-    return lf.astype(dt)
-
-
-@partial(jax.jit, static_argnames=("dtype",))
-def transpose_astype(x, dtype):
-    """One fused device op instead of two big eager dispatches."""
-    return x.T.astype(dtype)
-
-
-@partial(jax.jit, static_argnames=("scale",))
-def stack_physical(Es, scale: float):
-    """Stack per-checkpoint [B] energies and convert to physical units in
-    one device call (Es: tuple -> [n_ckpt, B] float32)."""
-    return jnp.stack(Es).astype(jnp.float32) * scale
 
 
 def default_observer(model: Model, sigma, aux, E):

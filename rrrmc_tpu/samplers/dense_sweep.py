@@ -1,10 +1,10 @@
-"""Dense-model (SK) sweep kernel: sequential single-site Metropolis with
-MXU-blocked delayed local-field updates.
+"""Dense-model (SK) sweep: sequential single-site Metropolis with
+matmul-blocked delayed local-field updates.
 
 A fully-connected flip costs O(N) local-field work, which is why the serial
 reference leans on @simd bit tricks (/root/reference/src/graphs/SK.jl:96-133).
-TPU-native, the classic delayed-update (rank-W) blocking maps that work onto
-the MXU:
+Here the classic delayed-update (rank-W) blocking maps that work onto one
+matrix product per window:
 
 * each sweep visits the sites of one shared random permutation (a valid
   random-scan Metropolis; the site order is state-independent, so sharing it
@@ -15,10 +15,10 @@ the MXU:
   correction from the window's own accepted flips (exact — the [W, W]
   coupling block is gathered once);
 * the O(N * W) local-field update is ONE int8 matmul per window,
-  lf += J[:, window] @ delta, accumulated in int32 on the MXU.
+  lf += J[:, window] @ delta, accumulated in int32 (exact).
 
-Layout: spins and local fields live transposed [N, B] (chains on lanes);
-window row slices are sublane gathers. Exact int32 energies throughout.
+Layout: spins and local fields live transposed [N, B] (chains contiguous);
+window row slices are row gathers. Exact int32 energies throughout.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def _run_dense_sweeps(J, h, beta_s, sigmaT, lfT, E, key, acc_count,
 
     Float J refreshes lf and E from scratch at every sweep end (one extra
     [N,N]x[N,B] matmul per sweep) so rounding drift stays bounded by one
-    sweep's accumulation — the TPU-f32 analog of the reference's periodic
+    sweep's accumulation — the f32 analog of the reference's periodic
     DynamicSampler refresh (/root/reference/src/DynamicSamplers.jl:84-98);
     without it the running energy drifts visibly over ~1e4 f32 updates."""
     N, B = sigmaT.shape
@@ -77,14 +77,18 @@ def _run_dense_sweeps(J, h, beta_s, sigmaT, lfT, E, key, acc_count,
             (lf_w, E),
             (jnp.arange(W), Jw, u, sig_w))
         sigmaT = sigmaT.at[rows].set(sig_new)
-        # rank-W local-field update on the MXU: lf += J[:, rows] @ delta
+        # rank-W local-field update as one matmul: lf += J[:, rows] @ delta
         # (int8 operands when J fits, delta is {0, +-2}; int32 otherwise;
         # float J commits in its own precision)
         mm_dt = (jnp.int8 if J.dtype == jnp.int8
                  else jnp.int32 if integer else J.dtype)
+        # float J: HIGHEST keeps the product in full f32 (a GPU may
+        # otherwise run it in TF32) so the tracked energy stays within
+        # rounding of the recomputed one
         upd = jax.lax.dot_general(
             J[rows].astype(mm_dt), delta.astype(mm_dt),
             dimension_numbers=(((0,), (0,)), ((), ())),
+            precision=None if integer else jax.lax.Precision.HIGHEST,
             preferred_element_type=acc_dt)           # [N, B]
         lfT = lfT + upd
         acc_count = acc_count + accs.sum(axis=0, dtype=jnp.int32)
@@ -100,6 +104,7 @@ def _run_dense_sweeps(J, h, beta_s, sigmaT, lfT, E, key, acc_count,
             s = sigmaT_c.astype(acc_dt)
             lfT_c = (jax.lax.dot_general(
                 J, s, dimension_numbers=(((1,), (0,)), ((), ())),
+                precision=jax.lax.Precision.HIGHEST,
                 preferred_element_type=acc_dt) + h.astype(acc_dt)[:, None])
             E_c = -(jnp.sum(s * (lfT_c + h.astype(acc_dt)[:, None]),
                             axis=0) / 2)
@@ -112,10 +117,9 @@ def _run_dense_sweeps(J, h, beta_s, sigmaT, lfT, E, key, acc_count,
     return sigmaT, lfT, E, acc_count, E_series
 
 
-#: per-model cache: eager max-reductions on J/h and PallasSKSweeper
-#: instances are expensive on remote backends (~0.1-1s per eager op), so
-#: they are computed once per model. Keyed by id(model.J) with the array
-#: itself held to prevent id reuse.
+#: per-model metadata (|J| maximum, colour masks, max degree),
+#: computed once per model: each costs a device reduction and a host copy.
+#: Keyed by id(model.J) with the arrays held to prevent id reuse.
 _MODEL_CACHE: dict = {}
 
 
@@ -123,37 +127,14 @@ def _model_meta(model) -> dict:
     from .common import bound_cache_put
 
     # h identity matters: field variants built with dataclasses.replace
-    # share the J object but need their own sweepers (h rides the lf seed)
+    # share the J object
     key = (id(model.J), id(model.h))
     ent = _MODEL_CACHE.get(key)
     if ent is None or ent["J"] is not model.J or ent["h"] is not model.h:
         ent = {"J": model.J, "h": model.h,
-               "j_max": int(jnp.max(jnp.abs(model.J))),
-               "h_max": int(jnp.max(jnp.abs(model.h))),
-               "sweepers": {}}
+               "j_max": int(jnp.max(jnp.abs(model.J)))}
         bound_cache_put(_MODEL_CACHE, key, ent)
     return ent
-
-
-def _cached_sweeper(model, beta: float):
-    from ..ops.sk_pallas import PallasSKSweeper
-
-    ent = _model_meta(model)
-    sw = ent["sweepers"].get(beta)
-    if sw is None:
-        sw = PallasSKSweeper(model, beta)
-        ent["sweepers"][beta] = sw
-    return sw
-
-
-def _pallas_dense_eligible(model, chains: int) -> bool:
-    from .common import concrete_model
-    if not (chains % 128 == 0 and concrete_model(model)):
-        return False
-    meta = _model_meta(model)
-    return (jnp.issubdtype(model.J.dtype, jnp.integer)
-            and jnp.issubdtype(model.h.dtype, jnp.integer)
-            and meta["j_max"] <= 127)
 
 
 def sweepMC_dense(model: FullyConnected, beta: float, sweeps: int, *,
@@ -162,19 +143,19 @@ def sweepMC_dense(model: FullyConnected, beta: float, sweeps: int, *,
                   state: Optional[MCState] = None):
     """Sequential single-site Metropolis sweeps on a dense model; `sweeps`
     full sweeps of N attempted flips per chain. Returns
-    (Es [chains, sweeps // step], final MCState). Requires integer J
-    (exact int32 energies); N must be a multiple of `window`.
-
-    backend="xla": random-permutation site order (reference-faithful random
-    scan). backend="pallas": the typewriter-scan Pallas kernel
-    (ops/sk_pallas.py, ~1e10 flips/s/chip; J VMEM-resident or HBM-streamed
-    by size, N padded to the window internally); does not update `accepted`.
-    "auto" picks pallas on an accelerator when eligible.
+    (Es [chains, sweeps // step], final MCState). Integer J keeps exact
+    int32 energies; the window W is the largest divisor of N up to
+    `window`. Site order: a fresh random permutation per sweep
+    (reference-faithful random scan).
 
     Float J (GraphSKNormal, /root/reference/src/graphs/SK.jl:170-297) runs
     the same delayed-update algebra with float local fields and f32/f64
-    rank-W MXU commits (XLA backend only)."""
+    rank-W matmul commits. backend: "auto" / "xla" run this XLA path; there
+    is no kernel route, so "pallas" raises ValueError."""
+    from .common import choose_route, set_route
+
     assert isinstance(model, FullyConnected), "requires a FullyConnected model"
+    choose_route("sweepMC_dense", model, backend=backend, state=state)
     integer = jnp.issubdtype(model.J.dtype, jnp.integer)
     N = model.N
     W = min(window, N)
@@ -182,13 +163,7 @@ def sweepMC_dense(model: FullyConnected, beta: float, sweeps: int, *,
         W = max(d for d in range(1, W + 1) if N % d == 0)
     if state is None:
         state = init_state(model, chains, seed, C0)
-    if backend == "auto":
-        backend = ("pallas" if integer and jax.default_backend() != "cpu"
-                   and _pallas_dense_eligible(model, chains) else "xla")
-    if backend == "pallas":
-        assert integer, "the Pallas dense kernel requires integer couplings"
-        return _sweep_dense_pallas(model, beta, sweeps, step, seed, state)
-    assert backend == "xla", backend
+    set_route("xla")
     beta_s = jnp.asarray(beta * model.scale, ftype())
     if integer:
         Jm = (model.J.astype(jnp.int8) if _model_meta(model)["j_max"] <= 127
@@ -210,85 +185,3 @@ def sweepMC_dense(model: FullyConnected, beta: float, sweeps: int, *,
     Es = jax.vmap(model.to_physical)(
         E_series[step - 1::step][:n_ckpt])            # [n_ckpt, B]
     return series_to_chain_major(Es), state
-
-
-#: cached PallasRingSweeper instances (ctor builds the base J tables)
-_RING_SWEEP_CACHE: dict = {}
-
-
-def sweepMC_quant(model, beta: float, sweeps: int, *, step: int = 1,
-                  chains: int = 1, seed: int = DEFAULT_SEED, C0=None,
-                  state: Optional[MCState] = None):
-    """Sequential Metropolis sweeps on a GraphQuant / GraphRobustEnsemble
-    composite via the replica kernel (ops/quant_pallas.py): the Metropolis
-    engine of the paper's QIsing / REIsing workloads
-    (/root/reference/scripts/scripts.jl:766-963) at MXU speed. One sweep =
-    Nk*M attempted flips per chain; energies f32 physical. Returns
-    (Es [chains, sweeps // step], final MCState); `accepted` counts
-    accepted flips. chains % 128 == 0.
-
-    Kernel-only (no XLA fallback): eligibility = composite_spec(model)
-    (FullyConnected / densifiable base, Nk % 128 == 0, M > 2)."""
-    from ..ops.quant_pallas import PallasRingSweeper
-    from .common import bound_cache_put, init_aux_batch, set_route
-
-    if state is None:
-        state = init_state(model, chains, seed, C0)
-    key = (id(model.resid_m.base), type(model).__name__, model.M,
-           float(beta))
-    ent = _RING_SWEEP_CACHE.get(key)
-    if ent is None or ent[0] is not model.resid_m.base:
-        ent = (model.resid_m.base, PallasRingSweeper(model, float(beta)))
-        bound_cache_put(_RING_SWEEP_CACHE, key, ent)
-    sw = ent[1]
-    sigma = state.sigma
-    E = state.E.astype(jnp.float32)
-    acc = state.accepted
-    lfT = None
-    n_ckpt = sweeps // step
-    Es = []
-    for c in range(n_ckpt):
-        sigma, E, acc, lfT = sw(sigma, E, acc,
-                                seed=(seed * 1000003 + c) % (2 ** 31),
-                                n_sweeps=step, lfT=lfT)
-        Es.append(E)
-    if sweeps % step:
-        sigma, E, acc, lfT = sw(sigma, E, acc,
-                                seed=(seed * 1000003 + n_ckpt) % (2 ** 31),
-                                n_sweeps=sweeps % step, lfT=lfT)
-    set_route("pallas-ring-sweep")
-    E_series = (jnp.stack(Es) if Es
-                else jnp.zeros((0, sigma.shape[0]), jnp.float32))
-    aux = init_aux_batch(model, sigma)
-    state = MCState(sigma=sigma, aux=aux, E=E.astype(state.E.dtype),
-                    key=state.key, accepted=acc)
-    return series_to_chain_major(E_series), state
-
-
-#: alias: the same entry point covers GraphRobustEnsemble composites
-sweepMC_replica = sweepMC_quant
-
-
-def _sweep_dense_pallas(model, beta, sweeps, step, seed, state):
-    """Checkpoint-granular driver over the Pallas dense kernel: one dispatch
-    per checkpoint (`step` sweeps stay on-chip per dispatch). The sweeper is
-    cached per (model, beta) — construction pads/casts the [N, N] J."""
-    sw = _cached_sweeper(model, float(beta))
-    sigma, E, lfT = state.sigma, state.E.astype(jnp.int32), None
-    n_ckpt = sweeps // step
-    Es = []
-    for c in range(n_ckpt):
-        sigma, E, lfT = sw(sigma, E, seed=(seed * 1000003 + c) % (2 ** 31),
-                           n_sweeps=step, lfT=lfT)
-        Es.append(E)
-    if sweeps % step:
-        sigma, E, lfT = sw(sigma, E, seed=(seed * 1000003 + n_ckpt) % (2 ** 31),
-                           n_sweeps=sweeps % step, lfT=lfT)
-    from .common import stack_physical, transpose_astype
-    E_series = (stack_physical(tuple(Es), float(model.scale)) if Es
-                else jnp.zeros((0, sigma.shape[0]), jnp.float32))
-    aux = (state.aux if lfT is None  # sweeps == 0: nothing ran
-           else transpose_astype(lfT[: model.N], state.aux.dtype))
-    state = MCState(sigma=sigma, aux=aux, E=E, key=state.key,
-                    accepted=state.accepted)
-    return series_to_chain_major(E_series), state

@@ -5,7 +5,7 @@ ascending (ties broken uniformly at random), draw a rank k with P(k)
 proportional to k^{-tau}, flip that spin unconditionally, track the minimum
 energy configuration seen.
 
-TPU-native formulation: the reference maintains sorted class buckets with
+Vectorized formulation: the reference maintains sorted class buckets with
 cumulative rank weights f_tau (EOCache, /root/reference/src/DeltaE.jl:424-554)
 or a full sortperm per move for continuous graphs (:556-635). Here each move
 samples the rank by inverse CDF on a precomputed static cumulative k^{-tau}
@@ -25,7 +25,6 @@ import jax.numpy as jnp
 
 from ..core.model import Model
 from ..core.struct import pytree
-from ..core.dtypes import ftype
 from .common import DEFAULT_SEED, MCState, init_state
 
 
@@ -104,66 +103,20 @@ def _to_phys_batch(model, E):
     return jax.vmap(model.to_physical)(E)
 
 
-#: cached PallasEO runners keyed on (coupling identity, tau)
-_EO_CACHE: dict = {}
-
-
-def _eo_pallas(model, tau: float, iters: int, chains: int, seed: int,
-               state: MCState, block_chains=None) -> EOResult:
-    from ..ops.eo_pallas import PallasEO, auto_eo_block_chains
-    from .common import bound_cache_put
-
-    if block_chains is None:
-        block_chains = auto_eo_block_chains(model, chains)
-    assert chains % block_chains == 0, (chains, block_chains)
-    # coupling identity: lattices key on Jd, pairwise/dense on J, PSpin3
-    # on its partner table A
-    Jid = next((getattr(model, a) for a in ("Jd", "J", "A", "xi")
-                if getattr(model, a, None) is not None), model)
-    # h identity matters: field variants share the coupling object
-    hid = getattr(model, "h", None)
-    key = (id(Jid), id(hid), float(tau), block_chains)
-    ent = _EO_CACHE.get(key)
-    if ent is None or ent[0] is not Jid or ent[1] is not hid:
-        ent = (Jid, hid,
-               PallasEO(model, float(tau), block_chains=block_chains))
-        bound_cache_put(_EO_CACHE, key, ent)
-    from .common import set_route
-    set_route(f"pallas-eo-{ent[2].kind}")
-    sigma, E, emin, smin, itmin = ent[2].run(
-        state.sigma, state.E, iters, seed)
-    return EOResult(sigma=sigma, E=_to_phys_batch(model, E.astype(ftype())),
-                    Emin=_to_phys_batch(model, emin.astype(ftype())),
-                    sigma_min=smin, itmin=itmin)
-
-
 def extremal_opt(model: Model, tau: float, iters: int, *, step: int = 1,
                  chains: int = 1, seed: int = DEFAULT_SEED, C0=None,
                  state: Optional[MCState] = None,
-                 backend: str = "auto",
-                 block_chains: Optional[int] = None) -> EOResult:
+                 backend: str = "auto") -> EOResult:
     """Ground-state search; returns an EOResult (the analog of the
     reference's (C, Emin, Cmin, itmin) tuple).
 
-    backend: "pallas" / "auto" route integer LatticeEA (fields OK) and
-    integer/float FullyConnected models (chains % 128 == 0) through the
-    rank-select kernel (ops/eo_pallas.py: per-lane binary-search order
-    statistic + uniform tie race; VMEM-resident J for integer N <= 4096 /
-    float N <= 2048, HBM-streamed beyond up to int 32768 / float 16384 —
-    one streamed J pass per move rebuilds the resident key table, so the
-    streamed rate is HBM-bound at ~BW/(N^2 jbytes) per chain block; for
-    SPARSE graphs the XLA O(deg) path is faster than densify+stream);
-    "xla" forces the generic path."""
-    from .common import set_route
+    backend: "auto" / "xla" run the XLA path; there is no kernel route, so
+    "pallas" raises ValueError."""
+    from .common import choose_route, set_route
 
+    choose_route("extremal_opt", model, backend=backend, state=state)
     if state is None:
         state = init_state(model, chains, seed, C0)
-    if backend != "xla":
-        from ..ops.eo_pallas import pallas_eo_eligible
-        if backend == "pallas" or (jax.default_backend() != "cpu"
-                                   and pallas_eo_eligible(model, chains)):
-            return _eo_pallas(model, float(tau), iters, chains, seed, state,
-                              block_chains=block_chains)
     set_route("xla")
     cdf = jnp.asarray(_rank_cdf(model.N, float(tau)))
     sigma, E, Emin, smin, itmin = _eo_run_xla(model, cdf, state, iters)

@@ -15,9 +15,8 @@ import jax
 import jax.numpy as jnp
 
 from ..core.model import Model
-from .common import (DEFAULT_SEED, MCState, init_state, init_lfT,
-                     run_with_hook, series_to_chain_major, stack_physical,
-                     transpose_astype)
+from .common import (DEFAULT_SEED, MCState, choose_route, init_state,
+                     run_with_hook, series_to_chain_major, set_route)
 
 
 def metropolis_accept(key, x):
@@ -45,7 +44,7 @@ def make_metropolis_step(model: Model, beta: float):
 def standardMC(model: Model, beta: float, iters: int, *, step: int = 1,
                chains: int = 1, seed: int = DEFAULT_SEED, C0=None,
                observer=None, hook=None, hook_every: int = 10,
-               state: Optional[MCState] = None, backend: str = "xla"):
+               state: Optional[MCState] = None, backend: str = "auto"):
     """Run `iters` Metropolis moves per chain; returns (Es, state).
 
     Es: [chains, iters // step] physical energies at each checkpoint.
@@ -54,102 +53,16 @@ def standardMC(model: Model, beta: float, iters: int, *, step: int = 1,
     (/root/reference/src/RRRMC.jl:61-64): called every `hook_every`
     checkpoints; returning False stops early.
 
-    backend="xla" (default): reference-faithful — every chain draws its own
-    site sequence. backend="pallas": the VMEM-resident single-site kernel
-    (ops/site_pallas.py, ~200x faster) — each chain is still an exact
-    Metropolis chain but the site SCHEDULE is shared across the batch;
-    Pairwise models only (integer couplings: exact int32 energies; float
-    couplings: f32), chains % 128 == 0, no hook/observer.
-
-    CAVEAT (shared schedule): chains are NOT mutually independent under
-    backend="pallas" (acceptance draws are independent, site choices are
-    not), so chain-to-chain spread UNDERSTATES the true Monte Carlo error —
-    do not feed its chains into cross-chain variance estimators
-    (experiments.stats_time SEMs, analysis R-hat style diagnostics). Use
-    backend="xla", or treat the batch as one effective chain for error bars.
+    Reference-faithful: every chain draws its own site sequence. backend:
+    "auto" / "xla" run the XLA path; there is no kernel route, so
+    "pallas" raises ValueError.
     """
-    from .common import set_route
-
+    choose_route("standardMC", model, backend=backend, state=state)
     if state is None:
         state = init_state(model, chains, seed, C0)
-    if backend == "pallas":
-        assert hook is None and observer is None, \
-            "the pallas single-site path has no hook/observer support"
-        return _standard_pallas(model, float(beta), iters, step, seed, state)
-    assert backend == "xla", backend
     set_route("xla")
     state, series = run_with_hook(model, state, float(beta),
                                   make_metropolis_step,
                                   iters // step, step, observer,
                                   hook, hook_every)
     return series_to_chain_major(series), state
-
-
-#: sampler cache: construction runs eager reshape/astype on the coupling
-#: tables (~0.1-1s each on the remote backend); keyed by table identity and
-#: bounded (FIFO) so disorder studies do not pin device memory forever
-_SITE_CACHE: dict = {}
-
-
-def _cached_site_sampler(model, beta):
-    from ..ops.site_pallas import PallasSiteSampler
-    from .common import bound_cache_put
-
-    # h identity matters: field variants built with dataclasses.replace
-    # share neigh/J objects, and the sampler seeds lf from its stored model
-    key = (id(model.neigh), id(model.J), id(model.h), beta)
-    ent = _SITE_CACHE.get(key)
-    if (ent is None or ent[0] is not model.neigh
-            or ent[1] is not model.J or ent[2] is not model.h):
-        ent = (model.neigh, model.J, model.h,
-               PallasSiteSampler(model, beta))
-        bound_cache_put(_SITE_CACHE, key, ent)
-    return ent[3]
-
-
-@jax.jit
-def _derive_seed(key0):
-    """int32 kernel-seed base from a chain key — segmented continuation runs
-    (state=) must NOT replay the previous segment's site schedule and
-    acceptance streams, so the base comes from the evolving key state."""
-    return jax.random.randint(key0, (), 0, 2 ** 31 - 1, jnp.int32)
-
-
-@jax.jit
-def _advance_keys(keys):
-    return jax.vmap(lambda k: jax.random.fold_in(k, 0x9A11A5))(keys)
-
-
-def _standard_pallas(model, beta, iters, step, seed, state):
-    from .common import set_route
-
-    ps = _cached_site_sampler(model, beta)
-    sigma = state.sigma
-    E = state.E.astype(jnp.float32 if ps.flt else jnp.int32)
-    if iters <= 0:
-        return (jnp.zeros((sigma.shape[0], 0), jnp.float32), state)
-    # randomness derives from the chain keys (not the static seed), so a
-    # continuation run draws fresh schedules; keys advance in the returned
-    # state
-    key = jax.random.fold_in(state.key[0], 0x517E)
-    seed_base = int(_derive_seed(state.key[0]))
-    lfT = init_lfT(model, sigma)
-    acc = state.accepted
-    n_ckpt = iters // step
-    Es = []
-    for c in range(n_ckpt):
-        sigma, E, lfT, key, acc = ps(sigma, E, key,
-                                     seed=(seed_base + 7919 * c) % (2 ** 31),
-                                     n_moves=step, lfT=lfT, acc=acc)
-        Es.append(E)
-    if iters % step:
-        sigma, E, lfT, key, acc = ps(
-            sigma, E, key, seed=(seed_base + 7919 * n_ckpt) % (2 ** 31),
-            n_moves=iters % step, lfT=lfT, acc=acc)
-    E_series = (stack_physical(tuple(Es), float(model.scale)) if Es
-                else jnp.zeros((0, sigma.shape[0]), jnp.float32))
-    set_route("pallas-site")
-    state = MCState(sigma=sigma, aux=transpose_astype(lfT, state.aux.dtype),
-                    E=E.astype(state.E.dtype), key=_advance_keys(state.key),
-                    accepted=acc)
-    return series_to_chain_major(E_series), state

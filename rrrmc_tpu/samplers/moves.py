@@ -7,7 +7,7 @@ for discrete graphs, a Wong-Easton partial-sum tree for continuous ones
 *serial* CPU loop. Vectorized over a batch of chains, the same distribution —
 pick spin i with probability min(1, e^{-beta dE_i}) / z — is computed directly
 from the dense dE vector with one fused elementwise pass + cumsum search,
-which is the TPU-optimal formulation (one kernel for all chains, no
+which is the vectorized formulation (one fused pass for all chains, no
 data-dependent structure updates).
 """
 

@@ -73,51 +73,21 @@ def rrrMC(model: Model, beta: float, iters: int, *, step: int = 1,
           chains: int = 1, seed: int = DEFAULT_SEED, C0=None,
           observer=None, hook=None, hook_every: int = 10,
           state: Optional[MCState] = None, backend: str = "auto",
-          staged_thr: float = None, staged_thr_fact: float = 5.0,
-          block_chains: Optional[int] = None):
+          staged_thr: float = None, staged_thr_fact: float = 5.0):
     """Reduced-rejection-rate MC; same call surface as standardMC.
 
     Returns (Es [chains, iters // step], final MCState).
 
-    backend: "pallas" / "auto" route hookless observer-less runs on SINGLE
-    (non-Double) models through the race-select + staged-z' kernels
-    (ops/rejfree_pallas.py mode="rrr", z/z' acceptance in a shifted log
-    domain): sparse Pairwise (N <= 16384, K <= 16 — resident-lf kernel
-    with O(deg) staged z', ~10x the dense streamed kernel on RRG N=1e4),
-    integer LatticeEA, GraphSAT / GraphPSpin3 (bit-packed clause-count /
-    product-table kernels), and eligible FullyConnected models (VMEM-resident
-    or HBM-streamed by J size; float couplings carry f32 energies). Double
-    models (Quant/RE wrappers) keep the XLA path — rt.flatten() +
-    rt.densify() a pairwise-representable wrapper stack, or use the
-    replica-composite kernels (ops/quant_pallas.py). "xla" forces the
-    generic path."""
-    from .common import set_route
+    backend: "auto" / "xla" run the XLA path; there is no kernel route, so
+    "pallas" raises ValueError."""
+    from .common import choose_route, set_route
 
     del staged_thr, staged_thr_fact  # kernel-identical branches; see docstring
     if not math.isfinite(beta):
         raise ValueError(f"beta must be finite, given: {beta}")
+    choose_route("rrrMC", model, backend=backend, state=state)
     if state is None:
         state = init_state(model, chains, seed, C0)
-    if (hook is None and observer is None and backend != "xla"
-            and iters <= 10 ** 9):
-        if model.inner is None:
-            from ..ops.rejfree_pallas import pallas_rejfree_eligible
-            ok = (backend == "pallas"
-                  or (jax.default_backend() != "cpu"
-                      and pallas_rejfree_eligible(model, chains)))
-        else:
-            # GraphQuant / GraphRobustEnsemble composites: the replica
-            # kernel runs the SingleGraph rrr law on the flat composite
-            # (same stationary distribution as the Double path;
-            # ops/quant_pallas.py docstring)
-            from ..ops.quant_pallas import replica_composite_eligible
-            ok = replica_composite_eligible(model, chains) and (
-                backend == "pallas" or jax.default_backend() != "cpu")
-        if ok:
-            from .bkl import _rejfree_mc
-            return _rejfree_mc(model, float(beta), "rrr", iters, step,
-                               chains, seed, state, iters // step,
-                               block_chains=block_chains)
     set_route("xla")
     state, series = run_with_hook(model, state, float(beta), make_rrr_step,
                                   iters // step, step, observer,

@@ -1,9 +1,9 @@
 """sweepMC: masked simultaneous Metropolis over graph-coloring classes — the
-TPU throughput kernel.
+throughput path.
 
 The reference's hot loop flips ONE spin per iteration
 (/root/reference/src/RRRMC.jl:100-119); its O(1) bookkeeping exists to make
-that serial loop fast. On TPU the roofline move is to flip an entire
+that serial loop fast. On an accelerator the move is to flip an entire
 *independent set* (color class) of spins per fused kernel: every spin in the
 class sees fixed neighbors, so the update is a product of independent
 single-site Metropolis decisions — a valid Glauber kernel with the same
@@ -20,7 +20,7 @@ for all B chains at once:
     sigma' = sigma * (1 - 2 accept)
     lf'    = J-gather recompute            (one padded gather, no scatter)
 
-Work is O(B N K) per sweep for B*N attempted flips — pure gather + VPU
+Work is O(B N K) per sweep for B*N attempted flips — pure gather +
 elementwise, no data-dependent control flow, so XLA fuses the whole sweep.
 """
 
@@ -218,99 +218,30 @@ def _run_sweepmc(model: Pairwise, state: MCState, beta, masks,
     return state, series
 
 
-def _pallas_eligible(model, chains: int) -> bool:
-    from ..models.lattice import LatticeEA
-    from .common import concrete_model
-    return (isinstance(model, LatticeEA)
-            and jnp.issubdtype(model.Jd.dtype, jnp.integer)
-            and jnp.issubdtype(model.h.dtype, jnp.integer)
-            and model.L % 2 == 0
-            and chains % 128 == 0
-            and concrete_model(model))
+@jax.jit
+def _kernel_seed(keys):
+    """int32 kernel stream base from the chain keys, and the keys advanced:
+    a continuation run (state=) never replays the previous call's bits."""
+    k0 = keys[0]
+    seed = jax.random.randint(k0, (), 0, 2 ** 31 - 1, jnp.int32)
+    return seed, jax.vmap(lambda k: jax.random.fold_in(k, 0x5EE9))(keys)
 
 
-#: site-sweep kernel caps: SMEM neighbor/coupling tables are N*K scalars
-#: each (verified to fit at N=1e4 K=3 on v5e); VMEM state is 30*(N+1)
-#: bytes/chain
-_SITE_SWEEP_NK_MAX = 65536
-
-
-def _site_sweep_eligible(model, chains: int) -> bool:
-    """Sparse Pairwise models whose sweeps can ride the single-site kernel
-    with a permutation schedule (ops/site_pallas.py sweep_schedule): the
-    checkerboard kernel is for even-L integer lattices; everything else
-    sparse (RRG, odd-L or float lattices, file graphs, flattened wrapper
-    stacks) gets ~40x the XLA color-mask path this way, with no densify."""
-    from .common import concrete_model
-
-    return (chains % 128 == 0 and model.N >= 8
-            and model.N * model.K <= _SITE_SWEEP_NK_MAX
-            and concrete_model(model))
-
-
-#: cached site-sweep samplers keyed on (couplings, fields, beta)
-_SITE_SWEEPERS: dict = {}
-
-
-def _run_sweepmc_site(model, state: MCState, beta, n_ckpt, step, seed):
-    """Checkpointed sweepMC driver over the single-site kernel with the
-    permutation (sweep) schedule; exact energy tracking, acceptance
-    accounting via the kernel's acc output."""
-    from ..ops.site_pallas import PallasSiteSampler
-    from .common import (bound_cache_put, init_aux_batch, set_route,
-                         stack_physical)
-
-    key = (id(model.J), id(model.h), float(beta), "sweep")
-    ent = _SITE_SWEEPERS.get(key)
-    if ent is None or ent[0] is not model.J or ent[1] is not model.h:
-        ent = (model.J, model.h, PallasSiteSampler(model, beta))
-        bound_cache_put(_SITE_SWEEPERS, key, ent)
-    sampler = ent[2]
-    sigma, E, kkey = state.sigma, state.E, state.key[0]
-    acc = None
-    lfT = None
-    series = []
-    for k in range(n_ckpt):
-        sigma, E, lfT, kkey, acc = sampler(
-            sigma, E, kkey, seed=(seed + 7919 * k) % (2 ** 31),
-            n_moves=step * model.N, lfT=lfT, acc=acc, sweep_schedule=True)
-        series.append(E)
-    aux = init_aux_batch(model, sigma)
-    set_route("pallas-site-sweep", acc=acc)
-    state = MCState(sigma=sigma, aux=aux, E=E, key=state.key,
-                    accepted=state.accepted + acc)
-    return state, stack_physical(tuple(series), float(model.scale))
-
-
-_LATTICE_SWEEPERS: dict = {}
-
-
-def _run_sweepmc_pallas(model, state: MCState, beta, n_ckpt, step, seed):
-    """Checkpointed driver over the VMEM-resident Pallas kernel
-    (ops/sweep_pallas.py): one kernel dispatch per checkpoint, exact int32
+def _run_sweepmc_kernel(model, state: MCState, beta, n_ckpt, step, *,
+                        interpret: bool = False):
+    """Checkpointed sweepMC over the lattice sweep kernel
+    (ops/sweep_pallas.py): one jitted call for all checkpoints, exact int32
     energy tracking; aux is rebuilt once at the end."""
-    from ..ops.sweep_pallas import PallasSweeper
+    from ..ops.sweep_pallas import LatticeSweeper
+    from .common import init_aux_batch
 
-    from .common import bound_cache_put, init_aux_batch, stack_physical
-
-    # key on BOTH coupling and field identity: field-carrying models can
-    # share a Jd object with their field-free base (dataclasses.replace)
-    key = (id(model.Jd), id(model.h), float(beta))
-    ent = _LATTICE_SWEEPERS.get(key)
-    if ent is None or ent[0] is not model.Jd or ent[1] is not model.h:
-        ent = (model.Jd, model.h, PallasSweeper(model, beta))
-        bound_cache_put(_LATTICE_SWEEPERS, key, ent)
-    sweeper = ent[2]
-    sigma, E = state.sigma, state.E
-    series = []
-    for k in range(n_ckpt):
-        sigma, E = sweeper(sigma, E, seed=(seed + 7919 * k) % (2 ** 31),
-                           n_sweeps=step)
-        series.append(E)
-    aux = init_aux_batch(model, sigma)
-    state = MCState(sigma=sigma, aux=aux, E=E, key=state.key,
-                    accepted=state.accepted)
-    return state, stack_physical(tuple(series), float(model.scale))
+    sweeper = LatticeSweeper(model, beta, interpret=interpret)
+    seed, keys = _kernel_seed(state.key)
+    sigma, E, Es = sweeper.run(state.sigma, state.E, seed=seed,
+                               n_ckpt=n_ckpt, step=step)
+    state = MCState(sigma=sigma, aux=init_aux_batch(model, sigma), E=E,
+                    key=keys, accepted=state.accepted)
+    return state, model.to_physical(Es)
 
 
 def sweepMC(model: Pairwise, beta: float, sweeps: int, *, step: int = 1,
@@ -322,16 +253,20 @@ def sweepMC(model: Pairwise, beta: float, sweeps: int, *, step: int = 1,
     as standardMC; use for throughput and equilibrium observables, use
     standardMC when strict single-site dynamics matter.
 
-    backend: "auto" picks the Pallas VMEM-resident kernel for even-L
-    integer-coupling LatticeEA models on TPU (~6x the XLA path), else the
-    generic XLA color-mask kernel; "xla" / "pallas" force a choice.
+    backend: "auto" takes the route samplers.common.choose_route picks
+    (the lattice sweep kernel for integer even-L LatticeEA on a GPU, the
+    generic XLA colour-mask sweep otherwise); "xla" forces the XLA path;
+    "pallas" requires the kernel and raises ValueError where there is none.
 
-    FullyConnected models route by structure: the VMEM-resident Pallas SK
-    kernel when eligible; a color-mask sweep with MXU-matmul local-field
-    recomputes when the dense J is sparse (few colors — densify()'d graphs);
-    else the delayed-update sequential scan (true dense models)."""
+    FullyConnected models route by structure: a colour-mask sweep with
+    matmul local-field recomputes when the dense J is sparse (few colours —
+    densify()'d graphs); else the delayed-update sequential scan (true dense
+    models)."""
     from ..models.dense import FullyConnected
 
+    from .common import choose_route, set_route
+
+    route = choose_route("sweepMC", model, backend=backend, state=state)
     cmasks = _cached_composite_masks(model)
     if cmasks is not None:
         # Quant/RE/LE/TLE wrapper over a sparse Pairwise base: (slot x base
@@ -339,20 +274,12 @@ def sweepMC(model: Pairwise, beta: float, sweeps: int, *, step: int = 1,
         # vs one move per pass on the single-move path
         if state is None:
             state = init_state(model, chains, seed, C0)
-        from .common import set_route
         set_route("composite-mask-sweep", n_masks=int(cmasks.shape[0]))
         state, series = _run_sweepmc_composite(model, state, float(beta),
                                                cmasks, sweeps // step, step)
         return series_to_chain_major(series), state
     if isinstance(model, FullyConnected):
-        from .dense_sweep import (sweepMC_dense, _pallas_dense_eligible,
-                                  _model_meta)
-        if backend == "pallas" or (backend == "auto"
-                                   and jax.default_backend() != "cpu"
-                                   and _pallas_dense_eligible(model, chains)):
-            return sweepMC_dense(model, beta, sweeps, step=step,
-                                 chains=chains, seed=seed, C0=C0,
-                                 state=state, backend="pallas")
+        from .dense_sweep import sweepMC_dense, _model_meta
         meta = _model_meta(model)
         if "max_degree" not in meta:
             # one jitted scalar reduction — do NOT pull [N, N] J to host
@@ -361,36 +288,26 @@ def sweepMC(model: Pairwise, beta: float, sweeps: int, *, step: int = 1,
                 lambda J: jnp.max(jnp.sum(J != 0, axis=1)))(model.J))
         if meta["max_degree"] > 32:  # genuinely dense: coloring degenerates
             # float J (GraphSKNormal) runs the same delayed-update scan with
-            # float local fields and f32/f64 rank-W MXU commits
+            # float local fields and f32/f64 rank-W matmul commits
             return sweepMC_dense(model, beta, sweeps, step=step,
                                  chains=chains, seed=seed, C0=C0,
-                                 state=state, backend="xla")
+                                 state=state)
         if "masks" not in meta:
             meta["masks"] = color_masks_dense(np.asarray(model.J))
         if state is None:
             state = init_state(model, chains, seed, C0)
+        set_route("xla")
         state, series = _run_sweepmc(model, state, float(beta),
                                      meta["masks"], sweeps // step, step)
         return series_to_chain_major(series), state
     assert isinstance(model, Pairwise), "sweepMC requires a Pairwise model"
     if state is None:
         state = init_state(model, chains, seed, C0)
-    lattice_ok = _pallas_eligible(model, chains)
-    use_pallas = (backend == "pallas" and lattice_ok) \
-        or (backend == "auto" and jax.default_backend() not in ("cpu",)
-            and lattice_ok)
-    if use_pallas:
-        state, series = _run_sweepmc_pallas(model, state, float(beta),
-                                            sweeps // step, step, seed)
+    if route == "triton-lattice-sweep":
+        state, series = _run_sweepmc_kernel(model, state, float(beta),
+                                            sweeps // step, step)
+        set_route(route)
         return series_to_chain_major(series), state
-    if backend != "xla" and _site_sweep_eligible(model, chains) and (
-            backend == "pallas" or jax.default_backend() not in ("cpu",)):
-        # generic sparse Pairwise: permutation-schedule sweeps on the
-        # single-site kernel (~40x the XLA color-mask path, no densify)
-        state, series = _run_sweepmc_site(model, state, float(beta),
-                                          sweeps // step, step, seed)
-        return series_to_chain_major(series), state
-    from .common import set_route
     set_route("xla")
     masks = (model.sweep_masks() if hasattr(model, "sweep_masks")
              else color_masks(model))

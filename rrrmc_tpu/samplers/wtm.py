@@ -7,8 +7,8 @@ spin flips, and affected clocks are redrawn at the new global time. Global
 time replaces the iteration counter; `step` is a Float64 measured in global
 time scaled by 1/N (/root/reference/src/RRRMC.jl:392).
 
-TPU-native formulation: the times live in a dense [N] vector; `pick_next` is
-an argmin (VPU-friendly) instead of a mutable binary heap
+Vectorized formulation: the times live in a dense [N] vector; `pick_next` is
+an argmin (one vector reduction) instead of a mutable binary heap
 (/root/reference/src/WaitingTimes.jl:13-37), and after each flip ALL clocks
 are redrawn at the current time. By memorylessness of the exponential clocks
 this is distributionally identical to the reference's redraw-only-neighbors
@@ -136,37 +136,23 @@ def _wtm_run(model, beta, tmax, step_t, chunk_moves, state: MCState,
 def wtmMC(model: Model, beta: float, samples: int, *, step: float = 1.0,
           chains: int = 1, seed: int = DEFAULT_SEED, C0=None,
           chunk_moves: int = 512, hook=None, observer=None,
-          state: Optional[MCState] = None, backend: str = "auto",
-          block_chains: Optional[int] = None):
+          state: Optional[MCState] = None, backend: str = "auto"):
     """Waiting-time method; collects up to `samples` checkpoints spaced
     `step` (scaled by 1/N) in global time. Returns (Es [chains, samples],
     final MCState). hook(t, model, state) -> False stops early.
     observer(model, sigma, aux, E) replaces checkpoint energies with any
     per-chain observable (snapshots for the overlap pipeline etc.).
 
-    backend: "pallas" / "auto" route hookless observer-less runs on sparse
-    Pairwise (N <= 16384, K <= 16 — resident-lf inverse-column kernel),
-    integer LatticeEA, GraphSAT / GraphPSpin3 (bit-packed clause-count /
-    product-table kernels), and eligible FullyConnected models
-    (chains % 128 == 0) through the rejection-free race kernels
-    (ops/rejfree_pallas.py: sparse / lattice / VMEM-dense / HBM-streamed by
-    structure and J size; float couplings carry f32 energies);
-    "xla" forces the generic path."""
-    from .common import set_route
+    backend: "auto" / "xla" run the XLA path; there is no kernel route, so
+    "pallas" raises ValueError."""
+    from .common import choose_route, set_route
 
+    choose_route("wtmMC", model, backend=backend, state=state)
     if state is None:
         state = init_state(model, chains, seed, C0)
     ft = ftype()
     step_t = float(step) / model.N
     tmax = step_t * samples
-    if hook is None and observer is None and backend != "xla":
-        from ..ops.rejfree_pallas import pallas_rejfree_eligible
-        if backend == "pallas" or (jax.default_backend() != "cpu"
-                                   and pallas_rejfree_eligible(model, chains)):
-            from .bkl import _rejfree_mc
-            return _rejfree_mc(model, float(beta), "wtm", tmax, step_t,
-                               chains, seed, state, samples,
-                               block_chains=block_chains)
     set_route("xla")
     key_times = jax.vmap(
         lambda k: jax.random.fold_in(k, 0x77777))(state.key)

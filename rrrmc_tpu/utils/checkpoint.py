@@ -2,7 +2,7 @@
 
 The reference's checkpointing is the C0 warm-start convention (every sampler
 accepts C0 and returns the final Config, /root/reference/src/RRRMC.jl:59-60,
-93-94) with no RNG-state persistence; SURVEY.md §5 specifies the TPU
+93-94) with no RNG-state persistence; SURVEY.md §5 specifies the batched
 equivalent as a full pytree dump of (spins, aux, E, RNG keys, counters) so a
 resumed run continues the *identical* chain.
 

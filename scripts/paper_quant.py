@@ -6,20 +6,10 @@
   * GraphSKRE(N=1024, M=5, beta=0.4) tracking REenergies at
     gamma in {2, 3, 4, 5} (the reference's full grid, scripts.jl:878).
 
-QIsing runs BOTH engines on kernels (chains=1024): Metropolis on the
-ring-replica sweep kernel (rt.sweepMC_quant) and rrr on the ring-replica
-race kernel (rt.rrrMC backend="pallas"), plus the XLA single-move engines at
-the round-2 operating point (64 chains) as the baseline the kernel speedup
-is measured against. The headline metric is WALL-CLOCK TO A TARGET QENERGY:
-for each engine, the first measured wall second at which the chain-mean
-Qenergy reaches the target (default: the level the XLA rrr engine reaches
-at its budget end).
-
-REIsing runs the same way: BOTH engines on the RE star composite kernels
-(ops/quant_pallas.py — the log-cosh star term rides in-kernel mu tables, so
-it never flattens) across the full gamma grid, plus the XLA single-move
-engines at 64 chains, reported next to the reference's CPU factors
-20.8/24.6/13.9/6.4.
+Both engines run on their routed default (rt.standardMC, rt.rrrMC). The
+headline metric is WALL-CLOCK TO A TARGET: for each engine, the first
+measured wall second from which the chain-mean observable stays at or below
+the level the rrr engine reaches at its budget end.
 
 Usage: python scripts/paper_quant.py [t_limit_s] [chains] [which]
    which in {qising, reising, both}. Writes paper_quant_results.json.
@@ -31,8 +21,9 @@ import time
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/rrrmc_jit_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from rrrmc_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 import numpy as np  # noqa: E402
 import rrrmc_tpu as rt  # noqa: E402
@@ -59,30 +50,11 @@ def _re_obs_batch(model, sigma):
 # ---------------------------------------------------------------------------
 
 
-def eng_met_kernel(model, beta, chains, seed):
-    def run(n, state):
-        sweeps = max(1, int(round(n / model.N)))
-        kw = {"state": state} if state is not None else {"seed": seed}
-        _, st = rt.sweepMC_quant(model, beta, sweeps, step=sweeps,
-                                 chains=chains, **kw)
-        return sweeps * model.N, st
-    return run
-
-
-def eng_rrr_kernel(model, beta, chains, seed):
-    def run(n, state):
-        kw = {"state": state} if state is not None else {"seed": seed}
-        _, st = rt.rrrMC(model, beta, int(n), step=int(n), chains=chains,
-                         backend="pallas", **kw)
-        return int(n), st
-    return run
-
-
-def eng_xla(sampler, model, beta, chains, seed):
+def engine(sampler, model, beta, chains, seed):
     def run(n, state):
         kw = {"state": state} if state is not None else {"seed": seed}
         _, st = sampler(model, beta, int(n), step=int(n), chains=chains,
-                        backend="xla", **kw)
+                        **kw)
         return int(n), st
     return run
 
@@ -94,10 +66,10 @@ def run_engine(run, model, obs_batch, *, t_limit, probe_n,
     the chain-mean observable trajectory vs wall-clock and nominal iters."""
     # probe: compile + calibrate segment size
     n_done, st = run(probe_n, None)
-    np.asarray(st.E)
+    jax.block_until_ready(st.E)
     t0 = time.time()
     n_done, st = run(probe_n, st)
-    np.asarray(st.E)
+    jax.block_until_ready(st.E)
     dt = max(time.time() - t0, 1e-3)
     n_seg = int(probe_n * max(1.0, min(seg_target_s / dt, 10_000.0)))
     rate = n_done / dt
@@ -106,7 +78,7 @@ def run_engine(run, model, obs_batch, *, t_limit, probe_n,
     for _ in range(max_segments):
         t0 = time.time()
         n_done, st = run(n_seg, st)
-        np.asarray(st.E)
+        jax.block_until_ready(st.E)
         wall += time.time() - t0
         iters += n_done
         q = np.asarray(obs_batch(model, st.sigma), np.float64)
@@ -136,112 +108,52 @@ def wall_to_target(res, target, idx=0):
     return best
 
 
-def qising(t_limit, chains_kernel, seed):
+def qising(t_limit, chains, seed):
     X = rt.GraphQSKT(1024, 16, 0.3, 2.0, seed=8370274)
     obs = _qenergy_batch
-    out = {"model": "QSKT N=1024 M=16 beta=2 Gamma=0.3",
-           "chains_kernel": chains_kernel, "chains_xla": 64}
-    print("=== QIsing: kernel engines ===", flush=True)
-    out["met_kernel"] = run_engine(
-        eng_met_kernel(X, 2.0, chains_kernel, seed), X, obs,
-        t_limit=t_limit, probe_n=8 * X.N)
-    print(json.dumps({"met_kernel_rate": out["met_kernel"]["rate_iters_per_s"]}),
-          flush=True)
-    out["rrr_kernel"] = run_engine(
-        eng_rrr_kernel(X, 2.0, chains_kernel, seed + 1), X, obs,
-        t_limit=t_limit, probe_n=2_000)
-    print(json.dumps({"rrr_kernel_rate": out["rrr_kernel"]["rate_iters_per_s"]}),
-          flush=True)
-    print("=== QIsing: XLA baseline engines (round-2 operating point) ===",
-          flush=True)
-    out["met_xla"] = run_engine(
-        eng_xla(rt.standardMC, X, 2.0, 64, seed + 2), X, obs,
-        t_limit=min(t_limit, 60.0), probe_n=400)
-    out["rrr_xla"] = run_engine(
-        eng_xla(rt.rrrMC, X, 2.0, 64, seed + 3), X, obs,
-        t_limit=min(t_limit, 60.0), probe_n=400)
-    out["met_factor_kernel"] = (out["met_kernel"]["rate_iters_per_s"]
-                                / out["rrr_kernel"]["rate_iters_per_s"])
-    out["met_factor_xla"] = (out["met_xla"]["rate_iters_per_s"]
-                             / out["rrr_xla"]["rate_iters_per_s"])
+    out = {"model": "QSKT N=1024 M=16 beta=2 Gamma=0.3", "chains": chains}
+    out["met"] = run_engine(engine(rt.standardMC, X, 2.0, chains, seed), X,
+                            obs, t_limit=t_limit, probe_n=400)
+    out["rrr"] = run_engine(engine(rt.rrrMC, X, 2.0, chains, seed + 1), X,
+                            obs, t_limit=t_limit, probe_n=400)
+    out["met_factor"] = (out["met"]["rate_iters_per_s"]
+                         / out["rrr"]["rate_iters_per_s"])
     out["met_factor_reference_cpu"] = 15.74          # scripts.jl:778
-    # headline: wall-clock to the Qenergy level the XLA rrr engine ends at
-    target = out["rrr_xla"]["traj"][-1]["obs_mean"][0] if isinstance(
-        out["rrr_xla"]["traj"][-1]["obs_mean"], list) else \
-        out["rrr_xla"]["traj"][-1]["obs_mean"]
+    target = out["rrr"]["traj"][-1]["obs_mean"][0]
     out["target_Qenergy"] = target
-    out["wall_to_target_s"] = {
-        k: wall_to_target(out[k], target)
-        for k in ("met_kernel", "rrr_kernel", "met_xla", "rrr_xla")}
-    wx = out["wall_to_target_s"]["rrr_xla"] or out["rrr_xla"]["wall_s"]
-    wk = {k: v for k, v in out["wall_to_target_s"].items()
-          if k.endswith("kernel") and v}
-    if wk:
-        out["speedup_vs_rrr_xla"] = {k: wx / v for k, v in wk.items()}
-    # deep target: the XLA-final level saturates in seconds (single-site
-    # dynamics stall), so also report wall-clock to the DEEPEST level the
-    # kernel Metropolis engine reaches — None marks an engine that never
-    # gets there within its budget
-    deep = out["met_kernel"]["traj"][-1]["obs_mean"]
-    deep = deep[0] if isinstance(deep, list) else deep
-    out["target_deep_Qenergy"] = deep
-    out["wall_to_deep_s"] = {
-        k: wall_to_target(out[k], deep)
-        for k in ("met_kernel", "rrr_kernel", "met_xla", "rrr_xla")}
+    out["wall_to_target_s"] = {k: wall_to_target(out[k], target)
+                               for k in ("met", "rrr")}
     print(json.dumps({k: out[k] for k in
-                      ("met_factor_kernel", "met_factor_xla",
-                       "target_Qenergy", "wall_to_target_s")}), flush=True)
+                      ("met_factor", "target_Qenergy", "wall_to_target_s")}),
+          flush=True)
     return out
 
 
-def eng_met_kernel_re(model, beta, chains, seed):
-    def run(n, state):
-        sweeps = max(1, int(round(n / model.N)))
-        kw = {"state": state} if state is not None else {"seed": seed}
-        _, st = rt.sweepMC_replica(model, beta, sweeps, step=sweeps,
-                                   chains=chains, **kw)
-        return sweeps * model.N, st
-    return run
-
-
-def reising(t_limit, chains_kernel, seed):
-    """REIsing across the reference's full gamma grid (scripts.jl:878),
-    BOTH engines on the RE star kernels (ops/quant_pallas.py; the star
-    constants ride SMEM, so one compile serves the whole grid) plus the
-    XLA single-move engines at the round-2 operating point (64 chains)."""
+def reising(t_limit, chains, seed):
+    """REIsing across the reference's full gamma grid (scripts.jl:878)."""
     ref = {2.0: 20.8, 3.0: 24.6, 4.0: 13.9, 5.0: 6.4}
-    out = {"model": "SKRE N=1024 M=5 beta=0.4",
-           "chains_kernel": chains_kernel, "chains_xla": 64, "gammas": {}}
+    out = {"model": "SKRE N=1024 M=5 beta=0.4", "chains": chains,
+           "gammas": {}}
     for gamma, ref_f in ref.items():
         X = rt.GraphSKRE(1024, 5, gamma, 0.4, seed=8370275)
         row = {}
-        row["met_kernel"] = run_engine(
-            eng_met_kernel_re(X, 0.4, chains_kernel, seed), X,
-            _re_obs_batch, t_limit=t_limit, probe_n=8 * X.N)
-        row["rrr_kernel"] = run_engine(
-            eng_rrr_kernel(X, 0.4, chains_kernel, seed + 1), X,
-            _re_obs_batch, t_limit=t_limit, probe_n=2_000)
         row["met"] = run_engine(
-            eng_xla(rt.standardMC, X, 0.4, 64, seed + 2), X, _re_obs_batch,
-            t_limit=min(t_limit, 45.0), probe_n=400)
+            engine(rt.standardMC, X, 0.4, chains, seed), X, _re_obs_batch,
+            t_limit=t_limit, probe_n=400)
         row["rrr"] = run_engine(
-            eng_xla(rt.rrrMC, X, 0.4, 64, seed + 3), X, _re_obs_batch,
-            t_limit=min(t_limit, 45.0), probe_n=400)
-        row["met_factor_kernel"] = (row["met_kernel"]["rate_iters_per_s"]
-                                    / row["rrr_kernel"]["rate_iters_per_s"])
+            engine(rt.rrrMC, X, 0.4, chains, seed + 1), X, _re_obs_batch,
+            t_limit=t_limit, probe_n=400)
         row["met_factor_measured"] = (row["met"]["rate_iters_per_s"]
                                       / row["rrr"]["rate_iters_per_s"])
         row["met_factor_reference_cpu"] = ref_f
-        # headline: wall-clock to the replica-energy level the XLA rrr
-        # engine ends at (obs component 0 = mean replica E/N)
+        # headline: wall-clock to the replica-energy level the rrr engine
+        # ends at (obs component 0 = mean replica E/N)
         target = row["rrr"]["traj"][-1]["obs_mean"][0]
         row["target_repl_E"] = target
-        row["wall_to_target_s"] = {
-            k: wall_to_target(row[k], target)
-            for k in ("met_kernel", "rrr_kernel", "met", "rrr")}
+        row["wall_to_target_s"] = {k: wall_to_target(row[k], target)
+                                   for k in ("met", "rrr")}
         print(json.dumps({"gamma": gamma,
-                          "met_factor_kernel": row["met_factor_kernel"],
-                          "met_factor_xla": row["met_factor_measured"],
+                          "met_factor": row["met_factor_measured"],
                           "ref": ref_f,
                           "wall_to_target_s": row["wall_to_target_s"]}),
               flush=True)
@@ -252,7 +164,7 @@ def reising(t_limit, chains_kernel, seed):
 def main():
     import os
     t_limit = float(sys.argv[1]) if len(sys.argv) > 1 else 90.0
-    chains = int(sys.argv[2]) if len(sys.argv) > 2 else 1024
+    chains = int(sys.argv[2]) if len(sys.argv) > 2 else 64
     which = sys.argv[3] if len(sys.argv) > 3 else "both"
     # partial runs merge into the existing artifact (QIsing and REIsing are
     # measured in separate long-compile sessions)

@@ -6,7 +6,7 @@ disorder realizations and chains.
 
 The reference loops over 10 seeds sequentially on one core with a 40 s
 budget per run; here the disorder axis is vectorized (sample_disorder) and
-every chain batch advances in lockstep, so the whole study is a few kernel
+every chain batch advances in lockstep, so the whole study is a few jitted
 dispatches. Iteration axes are aligned by nominal iterations directly (the
 reference's wall-clock `*_factor` constants exist only because serial
 samplers have different per-iteration costs; see
@@ -19,9 +19,9 @@ Writes a markdown table to stdout and a JSON artifact next to it.
 import json
 import sys
 
-import jax
+from rrrmc_tpu.utils.compile_cache import enable_compile_cache
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/rrrmc_jit_cache")
+enable_compile_cache()
 
 import numpy as np  # noqa: E402
 import rrrmc_tpu as rt  # noqa: E402

@@ -9,9 +9,9 @@ Usage: python scripts/rrg_factors.py [N] [chains]
 
 import sys
 
-import jax
+from rrrmc_tpu.utils.compile_cache import enable_compile_cache
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/rrrmc_jit_cache")
+enable_compile_cache()
 
 import rrrmc_tpu as rt  # noqa: E402
 from rrrmc_tpu.experiments import equal_wallclock_factors, runtest  # noqa: E402

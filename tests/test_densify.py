@@ -89,7 +89,7 @@ def test_sweepmc_dense_int32_couplings_and_zero_sweeps():
     m2 = rt.densify(rt.GraphRRG(64, 3, (-1, 1), seed=5))
     st0 = rt.init_state(m2, 128, seed=2)
     Es0, st1 = sweepMC_dense(m2, 1.0, sweeps=0, chains=128, seed=3,
-                             state=st0, backend="pallas")
+                             state=st0)
     assert Es0.shape[1] == 0
     np.testing.assert_array_equal(np.asarray(st1.sigma),
                                   np.asarray(st0.sigma))

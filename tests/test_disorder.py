@@ -4,7 +4,6 @@ scripts.jl:83-149)."""
 
 import jax
 import numpy as np
-import pytest
 
 import rrrmc_tpu as rt
 from rrrmc_tpu.parallel.mesh import make_mesh, sample_disorder, stack_models
@@ -97,62 +96,3 @@ def test_sample_disorder_sweepmc():
         E_re = jax.jit(jax.vmap(m.energy))(st.sigma[d])
         np.testing.assert_array_equal(np.asarray(E_re),
                                       np.asarray(st.E)[d])
-
-
-# ---------------------------------------------------------------------------
-# Disorder-stacked kernel dispatch: when every instance is kernel-eligible
-# (and no mesh/hook/observer), sample_disorder runs per-instance kernel
-# dispatches sharing ONE compile instead of falling to the vmapped XLA path.
-# ---------------------------------------------------------------------------
-
-
-def test_sample_disorder_kernel_route():
-    import importlib
-    import os
-
-    os.environ["RRRMC_PALLAS_INTERPRET"] = "1"
-    import rrrmc_tpu.ops.rejfree_pallas as rp
-    importlib.reload(rp)
-    try:
-        import rrrmc_tpu as rt
-        from rrrmc_tpu.parallel.mesh import sample_disorder
-        from rrrmc_tpu.samplers.common import LAST_ROUTE
-
-        models = [rt.GraphRRG(32, 3, (-1, 1), seed=s) for s in range(3)]
-        Es, sts = sample_disorder(rt.bklMC, models, 2.0, 3000, chains=128,
-                                  seed=7, step=200, backend="pallas")
-        assert LAST_ROUTE["backend"] == "pallas-rejfree-sparse"
-        assert LAST_ROUTE["disorder_instances"] == 3
-        assert np.asarray(Es).shape == (3, 128, 15)
-        for d, m in enumerate(models):
-            E_re = np.asarray(jax.jit(jax.vmap(m.energy))(sts.sigma[d]))
-            np.testing.assert_array_equal(E_re, np.asarray(sts.E[d]))
-        # per-instance streams are decorrelated: final spins differ
-        assert not np.array_equal(np.asarray(sts.sigma[0]),
-                                  np.asarray(sts.sigma[1]))
-    finally:
-        os.environ.pop("RRRMC_PALLAS_INTERPRET")
-        importlib.reload(rp)
-
-
-def test_sample_disorder_eo_kernel_route():
-    import importlib
-    import os
-
-    os.environ["RRRMC_PALLAS_INTERPRET"] = "1"
-    import rrrmc_tpu.ops.eo_pallas as ep
-    importlib.reload(ep)
-    try:
-        import rrrmc_tpu as rt
-        from rrrmc_tpu.parallel.mesh import sample_disorder
-        from rrrmc_tpu.samplers.common import LAST_ROUTE
-
-        models = [rt.GraphRRG(32, 3, (-1, 1), seed=s) for s in range(2)]
-        res = sample_disorder(rt.extremal_opt, models, 1.4, 200, chains=128,
-                              seed=9, backend="pallas")
-        assert LAST_ROUTE["backend"].startswith("pallas-eo")
-        assert LAST_ROUTE["disorder_instances"] == 2
-        assert np.asarray(res.Emin).shape == (2, 128)
-    finally:
-        os.environ.pop("RRRMC_PALLAS_INTERPRET")
-        importlib.reload(ep)

@@ -123,6 +123,28 @@ def test_pt_sharded_temp_and_chains():
     assert np.all(np.diff(means) < 0.2)
 
 
+def test_pt_sharded_matches_unsharded_bit_exact():
+    """Sharding temperatures and chains must not change any trajectory, on a
+    ladder whose swaps are genuinely random (acceptance neither ~0 nor ~1):
+    chain b draws the same swap uniform on every mesh."""
+    X = rt.GraphEA(4, 2, (-1, 1), seed=3)
+    betas = np.linspace(0.5, 4.0, 4)
+    run = lambda **kw: parallel_tempering(  # noqa: E731
+        X, betas, 40, sweeps_per_round=1, chains=8, seed=2, **kw)
+    Es_u, ranks_u, st_u = run()
+    moved = np.asarray(st_u.swap_acc).mean() / 40   # per slot and round
+    assert 0.05 < moved < 0.6, moved       # some, not all, swaps accepted
+    for axes in ({"temp": 2, "chains": 2}, {"temp": 4}, {"temp": 1,
+                                                         "chains": 4}):
+        mesh = make_mesh(axes, devices=jax.devices()[:4])
+        Es, ranks, st = run(mesh=mesh, axis="temp",
+                            chain_axis="chains" if "chains" in axes else None)
+        np.testing.assert_array_equal(np.asarray(ranks), np.asarray(ranks_u))
+        np.testing.assert_array_equal(np.asarray(Es), np.asarray(Es_u))
+        np.testing.assert_array_equal(np.asarray(st.sigma),
+                                      np.asarray(st_u.sigma))
+
+
 def test_chain_sharded_sampling_matches_unsharded():
     X = rt.GraphEA(4, 2, (-1, 1), seed=9)
     mesh = make_mesh({"chains": 8})

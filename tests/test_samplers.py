@@ -135,7 +135,7 @@ def test_wtm_stationarity_energy(graph):
 
 def test_cross_sampler_energy_agreement():
     """All four equilibrium samplers must agree on <E> (same stationary law
-    even though the TPU kernels differ from the serial reference)."""
+    even though the batched moves differ from the serial reference)."""
     model = SMALL["RRGNormal"]
     _, E_exact = boltzmann(model, BETA)
     means = {}
